@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and certified-search paths on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -17,9 +18,19 @@ printing no result, when there is no card or any phase fails. Phases:
    held against dense exact top-k on the card;
 5. guaranteed-exact search (`search_certified(method="fused")`) at
    2^20 x 64 bf16, B=4096, k=100, against dense exact top-k, with its
-   throughput, each kernel's time, its plain version's and a library
-   yardstick, and a profile of one batch (device time by kernel and the
+   throughput and a profile of one batch (device time by kernel and the
    device's idle share);
+6. the f32 lane-max scan kernel, the count kernel and the fused
+   scan + merge + select kernel against their plain versions: bit for
+   bit on the exact inputs, within a stated tolerance on random unit
+   vectors at the retrieval geometry;
+7. the other certified paths at the same full width, each against dense
+   exact top-k: `search_certified` with methods "f32" and "packed",
+   `packed_guaranteed_topk(selector="fused")`, `certified_topk` with the
+   discard and the count certificate, and exclusion search on an index
+   with `scan_kernel="f32"`;
+8. each kernel's time at the main path's shapes, its plain version's, a
+   library yardstick and its bound;
 then the card, one JSON line for the kernels, and the result line.
 """
 
@@ -44,7 +55,7 @@ from xfmr_rec_torch.index.mips import RetrievalIndex
 from xfmr_rec_torch.models.convert import torch_name
 from xfmr_rec_torch.models.encoder import ModelConfig, TextEncoder
 from xfmr_rec_torch.models.tokenizer import HashingTokenizer, TokenizerConfig
-from xfmr_rec_torch.ops import kernels, topk
+from xfmr_rec_torch.ops import kernels, topk, topk_f32
 from xfmr_rec_torch.serving.engine import RecommenderEngine
 from xfmr_rec_torch.serving.service import RecService, make_server
 
@@ -137,6 +148,19 @@ def exact_inputs(gen, batch, num_items, dim, int8=False):
     return q, c, scales, bound
 
 
+def exact_tensors(gen, dev, int8=False, f32=False, bias=False):
+    """`exact_inputs` at B=500, N=65536, D=64 on the card, in the dtypes
+    of one kernel instantiation (bf16/bf16, bf16/int8 or f32/f32), with
+    the 1.5 column appended for `bias_in_dot`."""
+    q, c, scales, bound = exact_inputs(gen, 500, 1 << 16, 64, int8=int8)
+    if bias:
+        c = torch.cat([c, torch.full((len(c), 1), 1.5)], dim=1)
+    qdt = torch.float32 if f32 else torch.bfloat16
+    cdt = torch.int8 if int8 else qdt
+    sd = None if scales is None else scales.to(dev)
+    return q.to(dev, qdt), c.to(dev, cdt), sd, bound
+
+
 def quantum_scaled(qbits: int) -> float:
     """One key quantum in scaled-score units (keys live in [1.25, 1.75),
     ulp 2^-23, with `qbits` low bits masked)."""
@@ -170,13 +194,9 @@ def phase_scan(dev) -> dict:
         opts = dict(opts)
         int8 = opts.pop("int8", False)
         f32 = opts.pop("f32", False)
-        q, c, scales, bound = exact_inputs(gen, 500, 1 << 16, 64, int8=int8)
-        if opts.get("bias_in_dot"):
-            c = torch.cat([c, torch.full((len(c), 1), 1.5)], dim=1)
-        qdt = torch.float32 if f32 else torch.bfloat16
-        cdt = torch.int8 if int8 else qdt
-        qd, cd = q.to(dev, qdt), c.to(dev, cdt)
-        sd = None if scales is None else scales.to(dev)
+        qd, cd, sd, bound = exact_tensors(
+            gen, dev, int8=int8, f32=f32, bias=opts.get("bias_in_dot", False)
+        )
         q_s, s_s, geom = topk.prepare_packed_scan(
             qd, cd, score_bound=bound, batch_tile=500, corpus_tile=2048,
             scales=sd, **opts,
@@ -190,7 +210,7 @@ def phase_scan(dev) -> dict:
         else:
             check(got[1] is None, f"dmax returned untracked ({name})")
         print(f"scan exact case {name}: keys and dmax bit-identical "
-              f"(B=500, N=65536, D={c.shape[1]})")
+              f"(B=500, N=65536, D={cd.shape[1]})")
 
     # random unit vectors at the retrieval geometry
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -226,7 +246,7 @@ def phase_scan(dev) -> dict:
           "(one key quantum + f32 reassociation)")
     check(err <= tol and err_dmax <= tol, "scan random-input error too large")
     return {"max_abs_err": max(err, err_dmax), "keys": got_keys,
-            "idx_bits": geom["idx_bits"]}
+            "idx_bits": geom["idx_bits"], "queries": q, "corpus": c}
 
 
 # ---------------------------------------------------------------------------
@@ -511,6 +531,48 @@ def phase_serving(dev, card: str) -> dict:
     return {"launches": launches}
 
 
+def packed_rows_off_quantum(index, queries, positions, tight, what,
+                            rows_held=None) -> int:
+    """Hold packed-order answers against dense exact top-k on the card.
+
+    A row is exact in the packed order when every returned item scores
+    within one key quantum (`tight`, scaled units) of the dense k-th
+    score or above, and every item more than a quantum above it is
+    returned. Rows that fail that (the ones a dense fallback answered)
+    must be exact in the unscaled bf16 order instead. Returns how many
+    rows took the second test; `rows_held` (bool per row) limits the
+    check to some rows.
+    """
+    dev = index.device
+    corpus_f = index.corpus.float()
+    qnorm = float(np.linalg.norm(queries, axis=-1).max())
+    bound = np.float32(max(index._corpus_maxnorm * qnorm * 1.05, 1e-6))
+    q_bf = torch.from_numpy(queries).to(dev, torch.bfloat16)
+    scale = 0.25 / torch.tensor(bound, device=dev)
+    q_s = (q_bf.float() * scale).bfloat16().float()
+    pos_all = torch.as_tensor(positions).to(dev, torch.int64)
+    held = (torch.ones(len(queries), dtype=torch.bool, device=dev)
+            if rows_held is None else rows_held.to(dev))
+    off_quantum = 0
+    for start in range(0, len(queries), 512):
+        rows = slice(start, start + 512)
+        dense = q_s[rows] @ corpus_f.T
+        kth = torch.topk(dense, BENCH_K, dim=1).values[:, -1:]
+        got = torch.gather(dense, 1, pos_all[rows])
+        ok = (got >= kth - tight).all(1) & (
+            (got > kth + tight).sum(1) == (dense > kth + tight).sum(1)
+        )
+        ok |= ~held[rows]
+        if not bool(ok.all()):
+            plain = q_bf[rows].float() @ corpus_f.T
+            kth_p = torch.topk(plain, BENCH_K, dim=1).values[:, -1:]
+            got_p = torch.gather(plain, 1, pos_all[rows])
+            ok_p = (got_p >= kth_p - 1e-6).all(1)
+            check(bool((ok | ok_p).all()), f"{what} not exact")
+            off_quantum += int((~ok).sum())
+    return off_quantum
+
+
 # ---------------------------------------------------------------------------
 # phase 5: guaranteed-exact search
 # ---------------------------------------------------------------------------
@@ -529,13 +591,14 @@ def phase_guaranteed(dev, card: str) -> dict:
         ).cpu().numpy()
         for _ in range(5)
     ]
-    index.search_certified(batches[0], top_k=BENCH_K)  # warm-up, unchecked
+    index.search_certified(batches[0], top_k=BENCH_K, method="fused")  # warm-up
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     times, pipeline_bad, results = [], 0, []
     for queries in batches[1:]:
         t0 = time.perf_counter()
-        scores, ids = index.search_certified(queries, top_k=BENCH_K)
+        scores, ids = index.search_certified(queries, top_k=BENCH_K,
+                                             method="fused")
         times.append(time.perf_counter() - t0)
         pipeline_bad += index.last_certified_stats["pipeline_bad"]
         results.append((queries, scores, ids))
@@ -546,35 +609,13 @@ def phase_guaranteed(dev, card: str) -> dict:
 
     # dense exact check at the packed order's resolution
     tight = quantum_scaled(index_quantum_bits(index)) + 1e-6
-    corpus_f = corpus_bf.float()
     fallback_rows = 0
     for queries, scores, ids in results:
         check(bool(np.isfinite(scores).all()), "non-finite scores")
         check(bool((np.diff(scores, axis=1) <= 1e-6).all()),
               "scores not descending")
-        qnorm = float(np.linalg.norm(queries, axis=-1).max())
-        bound = np.float32(max(index._corpus_maxnorm * qnorm * 1.05, 1e-6))
-        q_bf = torch.from_numpy(queries).to(dev, torch.bfloat16)
-        scale = 0.25 / torch.tensor(bound, device=dev)
-        q_s = (q_bf.float() * scale).bfloat16().float()
-        pos_all = torch.from_numpy(ids.astype(np.int64)).to(dev)
-        for start in range(0, BENCH_BATCH, 512):
-            rows = slice(start, start + 512)
-            dense = q_s[rows] @ corpus_f.T
-            kth = torch.topk(dense, BENCH_K, dim=1).values[:, -1:]
-            got = torch.gather(dense, 1, pos_all[rows])
-            ok = (got >= kth - tight).all(1) & (
-                (got > kth + tight).sum(1) == (dense > kth + tight).sum(1)
-            )
-            if not bool(ok.all()):
-                # rows the dense fallback answered: exact in the unscaled
-                # bf16 order instead
-                plain = q_bf[rows].float() @ corpus_f.T
-                kth_p = torch.topk(plain, BENCH_K, dim=1).values[:, -1:]
-                got_p = torch.gather(plain, 1, pos_all[rows])
-                ok_p = (got_p >= kth_p - 1e-6).all(1)
-                check(bool((ok | ok_p).all()), "guaranteed search not exact")
-                fallback_rows += int((~ok).sum())
+        fallback_rows += packed_rows_off_quantum(index, queries, ids, tight,
+                                                 "guaranteed search")
     check(fallback_rows <= pipeline_bad,
           "rows outside quantum semantics exceed the dense-fallback rows")
     print(f"guaranteed: 4 batches x B={BENCH_BATCH} over {BENCH_ITEMS} x "
@@ -587,6 +628,7 @@ def phase_guaranteed(dev, card: str) -> dict:
           "guaranteed path missed a kernel")
 
     qf = torch.from_numpy(batches[1]).to(dev).float()
+    corpus_f = corpus_bf.float()
 
     def library():
         return torch.topk(torch.matmul(qf, corpus_f.T), BENCH_K, dim=1)
@@ -597,7 +639,7 @@ def phase_guaranteed(dev, card: str) -> dict:
     return {"launches": launches, "ms": ms, "qps": qps,
             "certified_frac": certified_frac, "pipeline_bad": pipeline_bad,
             "library_ms": library_ms, "corpus": corpus_bf, "index": index,
-            "batch": batches[1],
+            "batch": batches[1], "warm": batches[0],
             "queries": torch.from_numpy(batches[1]).to(dev, torch.bfloat16)}
 
 
@@ -610,7 +652,9 @@ def phase_profile(guaranteed: dict, card: str) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        guaranteed["index"].search_certified(guaranteed["batch"], top_k=BENCH_K)
+        guaranteed["index"].search_certified(
+            guaranteed["batch"], top_k=BENCH_K, method="fused"
+        )
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(
@@ -631,9 +675,405 @@ def phase_profile(guaranteed: dict, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the lane-max scan, count and fused scan-select kernels vs plain
+# ---------------------------------------------------------------------------
+def scores_at(q, c, positions) -> torch.Tensor:
+    """f32 dots of each query row with the corpus rows at its positions,
+    in row chunks so the gathered rows stay small."""
+    out = [
+        topk.exact_scores_at(q[s : s + 256], c, positions[s : s + 256])
+        for s in range(0, q.shape[0], 256)
+    ]
+    return torch.cat(out)
+
+
+def phase_lane_scan(dev, q, c) -> dict:
+    gen = torch.Generator().manual_seed(SEED + 5)
+    on = dict(track_discards=True)
+    cases = [
+        ("slots1", dict(slots=1, **on)),
+        ("slots2", dict(slots=2, **on)),
+        ("slots1_no_discards", dict(slots=1)),
+        ("slots2_no_discards", dict(slots=2)),
+        ("slots1_shuffle1", dict(slots=1, lane_shuffle=1, **on)),
+        ("slots2_shuffle3", dict(slots=2, lane_shuffle=3, **on)),
+        ("slots2_shuffle1_padding",
+         dict(slots=2, lane_shuffle=1, true_num_items=60000, **on)),
+        ("slots1_padding", dict(slots=1, true_num_items=60000, **on)),
+        ("slots2_int8_scales", dict(slots=2, int8=True, **on)),
+        ("slots1_int8_scales_shuffle3",
+         dict(slots=1, int8=True, lane_shuffle=3, **on)),
+        ("slots2_f32_inputs", dict(slots=2, f32=True, **on)),
+        ("slots1_f32_inputs_shuffle1",
+         dict(slots=1, f32=True, lane_shuffle=1, **on)),
+    ]
+    for name, opts in cases:
+        opts = dict(opts)
+        qd, cd, sd, _ = exact_tensors(
+            gen, dev, int8=opts.pop("int8", False), f32=opts.pop("f32", False)
+        )
+        kw = dict(corpus_tile=2048, **opts)
+        got = kernels.lane_max_scan(qd, cd, sd, **kw)
+        want = topk_f32.lane_max_scan_plain(qd, cd, sd, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]), f"lane scan values differ ({name})")
+        check(torch.equal(got[1], want[1]),
+              f"lane scan positions differ ({name})")
+        if opts.get("track_discards"):
+            check(torch.equal(got[2], want[2]),
+                  f"lane scan dmax differs ({name})")
+        else:
+            check(got[2] is None, f"dmax returned untracked ({name})")
+        print(f"lane scan exact case {name}: values, positions and dmax "
+              "bit-identical (B=500, N=65536, D=64)")
+
+    # random unit vectors at the retrieval geometry
+    kw = dict(corpus_tile=2048, slots=2, track_discards=True)
+    got_v, got_p, got_d = kernels.lane_max_scan(q, c, None, **kw)
+    want_v, want_p, want_d = topk_f32.lane_max_scan_plain(q, c, None, **kw)
+    # scores of unit vectors are at most 1, so 1e-5 relative to the score
+    # scale; f32 sums of 64 products in another order differ by at most
+    # 2 * 64 * 2^-24 = 7.6e-6
+    tol = 1e-5
+    err = (got_v - want_v).abs().max().item()
+    err_d = (got_d - want_d).abs().max().item()
+    same_pos = (got_p == want_p).float().mean().item()
+    # every position must carry the value reported for it, so a position
+    # that differs from the plain version's holds a score within 2 * tol
+    err_p = (scores_at(q, c, got_p) - got_v).abs().max().item()
+    print(f"lane scan random B={q.shape[0]} N={c.shape[0]} D={c.shape[1]} "
+          f"slots=2: values max_abs_err {err:.3e}, dmax {err_d:.3e}, value "
+          f"at each reported position {err_p:.3e} (tolerance {tol:.0e}: f32 "
+          f"reassociation of 64 terms); {same_pos:.6f} of positions "
+          "identical")
+    check(max(err, err_d, err_p) <= tol, "lane scan random-input error")
+    return {"max_abs_err": max(err, err_d), "vals": got_v, "dmax": got_d}
+
+
+def phase_count(dev, q, c, lane: dict) -> dict:
+    gen = torch.Generator().manual_seed(SEED + 6)
+    for name, f32, true_n in (("base", False, None),
+                              ("padding", False, 60000),
+                              ("f32_inputs", True, None)):
+        qd, cd, _, _ = exact_tensors(gen, dev, f32=f32)
+        vals, _, _ = kernels.lane_max_scan(qd, cd, None, corpus_tile=2048,
+                                           slots=2, true_num_items=true_n)
+        # thresholds that are scores: every tie counts
+        tau = topk.topk_stable(vals, BENCH_K)[0][:, -1].contiguous()
+        kw = dict(corpus_tile=2048, true_num_items=true_n)
+        got = kernels.count_at_least(qd, cd, tau, **kw)
+        want = topk_f32.count_at_least_plain(qd, cd, tau, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"counts differ ({name})")
+        check(bool((got >= BENCH_K).all()), f"count below k ({name})")
+        print(f"count exact case {name}: counts identical (B=500, N=65536, "
+              f"D=64, tau = {BENCH_K}th lane score)")
+
+    # tau from the scan kernel on the random inputs: tau's own item must
+    # count, so a certified row with no tie at tau counts exactly k
+    top = topk.topk_stable(lane["vals"], BENCH_K + 1)[0]
+    tau = top[:, BENCH_K - 1].contiguous()
+    kw = dict(corpus_tile=2048)
+    got = kernels.count_at_least(q, c, tau, **kw)
+    want = topk_f32.count_at_least_plain(q, c, tau, **kw)
+    # the plain version sums its dots in another order: a score within
+    # 1e-5 of tau may fall on either side, so the counts may differ by at
+    # most the number of scores in that band (counted by the kernel)
+    band = (kernels.count_at_least(q, c, tau - 1e-5, **kw)
+            - kernels.count_at_least(q, c, tau + 1e-5, **kw))
+    diff = (got - want).abs()
+    check(bool((diff <= band).all()), "count differs from plain beyond ties")
+    check(bool((got >= BENCH_K).all()), "tau's own items were not counted")
+    sure = (lane["dmax"] < tau) & (top[:, BENCH_K] < tau)
+    check(bool((got[sure] == BENCH_K).all()),
+          "certified rows without a tie did not count k")
+    print(f"count random B={q.shape[0]} N={c.shape[0]}: tau from the lane "
+          f"scan kernel; counts == {BENCH_K} on all {int(sure.sum())} rows "
+          f"that the discard certificate proves and that have no tie at tau, "
+          f">= {BENCH_K} on all rows; vs plain: {int((diff > 0).sum())} rows "
+          f"differ, max by {int(diff.max())}, each within its tie band")
+    return {"max_abs_err": float(diff.max()), "tau": tau}
+
+
+def phase_fused_select(dev, q, c) -> dict:
+    gen = torch.Generator().manual_seed(SEED + 7)
+    cases = [
+        ("keep2_level0", dict(merge_levels=0)),
+        ("keep2_level1", dict(merge_levels=1)),
+        ("keep2_level2", dict(merge_levels=2)),
+        ("keep3", dict(merge_levels=1, merge_keep=3)),
+        ("keep3_shuffle3", dict(merge_levels=1, merge_keep=3, lane_shuffle=3)),
+        ("keep3_int8_scales", dict(merge_levels=1, merge_keep=3, int8=True)),
+        ("keep3_padding_shuffle1",
+         dict(merge_levels=1, merge_keep=3, true_num_items=60000,
+              lane_shuffle=1)),
+        ("keep3_bias_in_dot",
+         dict(merge_levels=1, merge_keep=3, bias_in_dot=True)),
+    ]
+
+    def both(qd, cd, sd, bound, opts):
+        levels = opts["merge_levels"]
+        q_s, s_s, geom = topk.prepare_packed_scan(
+            qd, cd, score_bound=bound, batch_tile=qd.shape[0],
+            corpus_tile=2048, reserve_bits=levels, scales=sd,
+            **{k: v for k, v in opts.items() if k not in
+               ("merge_levels", "merge_keep")},
+        )
+        del geom["track_discards"], geom["reserve_bits"]
+        kw = dict(merge_levels=levels, merge_keep=opts.get("merge_keep", 2),
+                  capacity=128, **geom)
+        before = kernels.launch_counts()
+        got = kernels.packed_scan_select(q_s, cd, s_s, BENCH_K, **kw)
+        after = kernels.launch_counts()
+        check(after["packed_scan_select"] == before["packed_scan_select"] + 1
+              and after["packed_scan"] == before["packed_scan"]
+              and after["threshold_select"] == before["threshold_select"],
+              "the fused kernel is not exactly one launch")
+        want = topk.packed_lane_scan_select_plain(q_s, cd, s_s, BENCH_K, **kw)
+        torch.cuda.synchronize()
+        return got, want, q_s, geom
+
+    for name, opts in cases:
+        opts = dict(opts)
+        qd, cd, sd, bound = exact_tensors(
+            gen, dev, int8=opts.pop("int8", False),
+            bias=opts.get("bias_in_dot", False),
+        )
+        got, want, _, _ = both(qd, cd, sd, bound, opts)
+        for part, g, w in zip(("keys", "lanes (meta)", "dmax"), got, want,
+                              strict=True):
+            check(torch.equal(g, w), f"fused select {part} differ ({name})")
+        print(f"fused select exact case {name}: keys, lanes and dmax "
+              f"bit-identical (B=500, N=65536, D={cd.shape[1]}, k={BENCH_K})")
+
+    # random unit vectors at the retrieval geometry, the index's own
+    # configuration (keep-3, one merge level)
+    opts = dict(merge_levels=1, merge_keep=3)
+    got, want, q_s, geom = both(q, c, None, 1.05, opts)
+    qbits = geom["idx_bits"] + 1
+    decode = dict(idx_bits=geom["idx_bits"], reserve_bits=1, score_bound=1.05)
+
+    def top_scores(keys):
+        return topk.decode_scores(topk.topk_stable(keys, BENCH_K)[0], **decode)
+
+    err = (top_scores(got[0]) - top_scores(want[0])).abs().max().item()
+    err_d = (topk.decode_scores(got[2], **decode)
+             - topk.decode_scores(want[2], **decode)).abs().max().item()
+    tol = quantum_scaled(qbits) * 1.05 / 0.25 + 64 * 2.0**-24 * 4
+    raw_same = all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+    # the two-kernel path on the same inputs runs the same sweep and the
+    # same select: identical outputs, whatever the order of the dots
+    keys, dmax = kernels.packed_scan(q_s, c, None, reserve_bits=1, **geom)
+    pool, dmax = topk._merge_slots(keys, dmax, 1, 3)
+    two = kernels.threshold_select(pool.contiguous(), BENCH_K, capacity=128,
+                                   quantum_bits=qbits, shared_exponent=True)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], two[0]) and torch.equal(got[1], two[1])
+          and torch.equal(got[2], dmax),
+          "fused kernel differs from the two-kernel path")
+    print(f"fused select random B={q.shape[0]} N={c.shape[0]} keep-3: top-"
+          f"{BENCH_K} decoded scores max_abs_err {err:.3e} (dmax {err_d:.3e}) "
+          f"vs plain, tolerance {tol:.3e} (one key quantum + f32 "
+          f"reassociation); raw outputs identical to plain: {raw_same}; "
+          "identical to packed_scan + merge + threshold_select: True")
+    check(max(err, err_d) <= tol, "fused select random-input error")
+    return {"max_abs_err": max(err, err_d)}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the other certified paths at full width
+# ---------------------------------------------------------------------------
+def phase_certified(dev, card: str, guaranteed: dict) -> dict:
+    index = guaranteed["index"]
+    queries = guaranteed["batch"]
+    q_bf = guaranteed["queries"]
+    corpus_f = index.corpus.float()
+    tight = quantum_scaled(index_quantum_bits(index)) + 1e-6
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def drive(what, fn, needs, never=()):
+        """Run one path with the counts at 0 before and read after."""
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        for name in needs:
+            check(counts[name] > 0, f"{what} never launched {name}")
+        for name in never:
+            check(counts[name] == 0, f"{what} launched {name}")
+        for name, count in counts.items():
+            total[name] += count
+        used = {k: v for k, v in counts.items() if v}
+        return out, ms, used
+
+    # (a) search_certified(method="f32"): the default method
+    drive("f32 warm-up", lambda: index.search_certified(
+        guaranteed["warm"], top_k=BENCH_K), ["lane_max_scan"])
+    (scores, ids), f32_ms, used = drive(
+        "search_certified f32",
+        lambda: index.search_certified(queries, top_k=BENCH_K),
+        ["lane_max_scan"], never=["packed_scan", "packed_scan_select"],
+    )
+    stats = dict(index.last_certified_stats)
+    check(scores.shape == ids.shape == (BENCH_BATCH, BENCH_K), "f32 shape")
+    check(bool(np.isfinite(scores).all()), "f32: non-finite scores")
+    got_s = torch.from_numpy(scores).to(dev)
+    pos = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    worst = 0.0
+    for start in range(0, BENCH_BATCH, 512):
+        rows = slice(start, start + 512)
+        dense = q_bf[rows].float() @ corpus_f.T
+        exact = torch.topk(dense, BENCH_K, dim=1).values
+        worst = max(
+            worst,
+            (got_s[rows] - exact).abs().max().item(),
+            (torch.gather(dense, 1, pos[rows]) - got_s[rows]).abs().max().item(),
+        )
+        check(bool((torch.sort(pos[rows], dim=1).values.diff(dim=1) > 0).all()),
+              "f32: duplicate ids in a row")
+    check(worst <= 1e-5, f"f32 certified search not exact ({worst:.3e})")
+    f32_qps = BENCH_BATCH / (f32_ms / 1e3)
+    print(f"certified f32: B={BENCH_BATCH} over {BENCH_ITEMS} x {BENCH_DIM} "
+          f"bf16, k={BENCH_K}: every row's scores == dense exact top-k and "
+          f"each id carries its score (max_abs_err {worst:.3e} <= 1e-5); "
+          f"stats {stats}; {f32_ms:.3f} ms, {f32_qps:.0f} qps (host wall); "
+          f"launches {used} [{card}]")
+
+    # (b) search_certified(method="packed")
+    drive("packed warm-up", lambda: index.search_certified(
+        guaranteed["warm"], top_k=BENCH_K, method="packed"), ["packed_scan"])
+    (scores, ids), packed_ms, used = drive(
+        "search_certified packed",
+        lambda: index.search_certified(queries, top_k=BENCH_K,
+                                       method="packed"),
+        ["packed_scan", "threshold_select"],
+        never=["lane_max_scan", "packed_scan_select"],
+    )
+    stats = dict(index.last_certified_stats)
+    check(bool(np.isfinite(scores).all()), "packed: non-finite scores")
+    off = packed_rows_off_quantum(index, queries, ids, tight,
+                                  "packed certified search")
+    check(off <= stats["retry_bad"], "packed: rows off the key quantum "
+          "exceed the dense-fallback rows")
+    print(f"certified packed: every row == dense exact top-k (one key "
+          f"quantum, {tight:.2e} scaled); stats {stats}; {packed_ms:.3f} ms, "
+          f"{BENCH_BATCH / (packed_ms / 1e3):.0f} qps (host wall); launches "
+          f"{used} [{card}]")
+
+    # (c) the fused selector, on the index's padded corpus and geometry
+    corpus_p, scales_p, tile, true_n = index._scan_setup()
+
+    def fused():
+        return topk.packed_guaranteed_topk(
+            q_bf, corpus_p, BENCH_K, score_bound=index._score_bound(queries),
+            batch_tile=512, corpus_tile=tile, merge_levels=1, merge_keep=3,
+            true_num_items=true_n, scales=scales_p, retries=3,
+            selector="fused",
+        )
+
+    drive("fused selector warm-up", fused, ["packed_scan_select"])
+    (scores_t, pos_t, exact_t), fused_ms, used = drive(
+        "packed_guaranteed_topk fused", fused, ["packed_scan_select"],
+        never=["packed_scan", "threshold_select", "lane_max_scan"],
+    )
+    check(bool(torch.isfinite(scores_t).all()), "fused: non-finite scores")
+    off = packed_rows_off_quantum(index, queries, pos_t, tight,
+                                  "fused selector", rows_held=exact_t)
+    check(off == 0, "fused selector: a certified row is off the key quantum")
+    print(f"fused selector: packed_guaranteed_topk(selector='fused') "
+          f"certified {int(exact_t.sum())} of {BENCH_BATCH} rows, each == "
+          f"dense exact top-k (one key quantum); {fused_ms:.3f} ms (host "
+          f"wall, results left on the card); launches {used} [{card}]")
+
+    # (d) the discard and the count certificate on one batch
+    kw = dict(corpus_tile=tile, true_num_items=true_n)
+    (_, _, by_discard), _, _ = drive(
+        "certified_topk discard",
+        lambda: topk_f32.certified_topk(q_bf, corpus_p, BENCH_K,
+                                        method="discard", **kw),
+        ["lane_max_scan"], never=["count_at_least"],
+    )
+    (vals, _, by_count), count_ms, used = drive(
+        "certified_topk count",
+        lambda: topk_f32.certified_topk(q_bf, corpus_p, BENCH_K,
+                                        method="count", **kw),
+        ["lane_max_scan", "count_at_least"],
+    )
+    tau = vals[:, BENCH_K - 1].contiguous()
+    above = torch.nextafter(tau, torch.full_like(tau, math.inf))
+    at_tau = (kernels.count_at_least(q_bf, corpus_p, tau, **kw)
+              - kernels.count_at_least(q_bf, corpus_p, above, **kw))
+    no_tie = at_tau == 1
+    check(bool((by_discard == by_count)[no_tie].all()),
+          "discard and count certificates disagree on a row without a tie")
+    print(f"certificates: discard certifies {int(by_discard.sum())} rows, "
+          f"count {int(by_count.sum())}; equal on all {int(no_tie.sum())} "
+          f"rows without a tie at the k-th score ({int((~no_tie).sum())} "
+          f"rows tie); count method {count_ms:.3f} ms; launches {used} "
+          f"[{card}]")
+
+    # (e) exclusion search on an index with scan_kernel="f32"
+    index32 = RetrievalIndex(index.corpus, np.arange(BENCH_ITEMS),
+                             method="scan", scan_kernel="f32", device=dev)
+    rng = np.random.default_rng(SEED + 8)
+    excl = rng.integers(0, BENCH_ITEMS, size=(8, 5))
+    (scores, ids), search_ms, used = drive(
+        "f32 scan search",
+        lambda: index32.search(queries[:8], top_k=BENCH_K,
+                               exclude_ids=excl.tolist()),
+        ["lane_max_scan"], never=["packed_scan"],
+    )
+    # the scan keeps the top-2 of every lane (column mod the tile) before
+    # the exclusions are dropped: the answer is the top-k of those
+    dense = q_bf[:8].float() @ corpus_f.T
+    lanes = dense.view(8, BENCH_ITEMS // tile, tile)
+    top2, tiles = torch.topk(lanes, 2, dim=1)
+    positions = tiles * tile + torch.arange(tile, device=dev)
+    top2, positions = top2.reshape(8, -1), positions.reshape(8, -1)
+    hit = (positions[:, :, None] == torch.from_numpy(excl).to(dev)[:, None, :])
+    want = torch.topk(torch.where(hit.any(-1), -math.inf, top2), BENCH_K,
+                      dim=1).values
+    got_s = torch.from_numpy(scores).to(dev)
+    pos = torch.from_numpy(ids.astype(np.int64)).to(dev)
+    err = max((got_s - want).abs().max().item(),
+              (torch.gather(dense, 1, pos) - got_s).abs().max().item())
+    check(err <= 1e-5, f"f32 scan search differs from dense ({err:.3e})")
+    for row in range(8):
+        check(not set(excl[row].tolist()) & set(ids[row].tolist()),
+              "f32 scan search: an excluded id came back")
+        check(len(set(ids[row].tolist())) == BENCH_K, "f32 scan: duplicates")
+    masked = dense.scatter(1, torch.from_numpy(excl).to(dev), -math.inf)
+    true_top = torch.topk(masked, BENCH_K, dim=1).indices
+    recall = np.mean([
+        len(set(true_top[row].tolist()) & set(ids[row].tolist())) / BENCH_K
+        for row in range(8)
+    ])
+    print(f"f32 scan search: 8 queries x top-{BENCH_K} with exclusions == "
+          f"dense top-k of the top-2-per-lane survivors (max_abs_err "
+          f"{err:.3e} <= 1e-5); recall@{BENCH_K} vs unrestricted dense "
+          f"{recall:.4f}; {search_ms:.2f} ms host wall; launches {used} "
+          f"[{card}]")
+    print(f"certified paths kernel launches: {total}")
+    return {"launches": total, "f32_ms": f32_ms, "packed_ms": packed_ms,
+            "fused_ms": fused_ms, "tau": tau}
+
+
+# ---------------------------------------------------------------------------
 # kernel timings and bounds at the main path's shapes
 # ---------------------------------------------------------------------------
-def phase_timings(guaranteed: dict, select: dict, card: str) -> dict:
+def bound_of(bytes_ms: float, *ops_ms: float) -> dict:
+    """The least time for the work: the larger of the byte time and the
+    operation times, and which of the two kinds it is."""
+    bound = max(bytes_ms, *ops_ms)
+    return dict(bound_ms=bound,
+                bound_by="bytes" if bytes_ms >= bound else "operations")
+
+
+def phase_timings(guaranteed: dict, select: dict, certified: dict,
+                  card: str) -> dict:
     corpus = guaranteed["corpus"]
     q_s, _, geom = topk.prepare_packed_scan(
         guaranteed["queries"], corpus, score_bound=1.05, batch_tile=512,
@@ -687,16 +1127,107 @@ def phase_timings(guaranteed: dict, select: dict, card: str) -> dict:
           f"{sel_ms:.3f} ms, plain {sel_plain_ms:.3f} ms, torch.topk "
           f"{sel_lib_ms:.3f} ms; bound {sel_bound:.4f} ms (bytes "
           f"{sel_bytes_ms:.4f}, int32 compares {sel_ops_ms:.4f}) [{card}]")
+    # kernel 3: the f32 lane-max scan as pass 1 of search_certified("f32")
+    queries = guaranteed["queries"]
+    lane_kw = dict(corpus_tile=ct, slots=2, track_discards=True)
+    lane_ms = cuda_ms(
+        lambda: kernels.lane_max_scan(queries, corpus, None, **lane_kw),
+        iters=5,
+    )
+    lane_plain_ms = cuda_ms(
+        lambda: topk_f32.lane_max_scan_plain(queries, corpus, None, **lane_kw),
+        iters=2,
+    )
+    lane_retry = {}
+    for rows in (256, 64):
+        q_rows = queries[:rows].contiguous()
+        lane_retry[rows] = cuda_ms(
+            lambda q_rows=q_rows: kernels.lane_max_scan(q_rows, corpus, None,
+                                                        **lane_kw)
+        )
+    lane_bytes_ms = (b * d * 2 + n * d * 2 + 2 * b * 2 * ct * 4 + b * 4
+                     ) / HBM_BYTES_PER_S * 1e3
+    # per score: 2 compares, 5 selects, the position, the discard max
+    lane_ops_ms = 9 * b * n / INT32_OPS * 1e3
+    lane_bound = bound_of(lane_bytes_ms, dot_ms, lane_ops_ms)
+    print(f"lane_max_scan at B={b} N={n} D={d} ct={ct} slots=2: kernel "
+          f"{lane_ms:.3f} ms, plain {lane_plain_ms:.3f} ms; at B=256 "
+          f"{lane_retry[256]:.3f} ms, B=64 {lane_retry[64]:.3f} ms; bound "
+          f"{lane_bound['bound_ms']:.3f} ms (bytes {lane_bytes_ms:.3f}, bf16 "
+          f"dot on tensor cores {dot_ms:.3f}, f32/int32 contest "
+          f"{lane_ops_ms:.3f}) [{card}]")
+
+    # kernel 4: the count sweep of certified_topk(method="count")
+    tau = certified["tau"]
+    count_ms = cuda_ms(
+        lambda: kernels.count_at_least(queries, corpus, tau, corpus_tile=ct),
+        iters=5,
+    )
+    count_plain_ms = cuda_ms(
+        lambda: topk_f32.count_at_least_plain(queries, corpus, tau,
+                                              corpus_tile=ct),
+        iters=2,
+    )
+    qf, corpus_f = queries.float(), corpus.float()
+    count_lib_ms = cuda_ms(
+        lambda: (torch.matmul(qf, corpus_f.T) >= tau[:, None]).sum(-1),
+        iters=3,
+    )
+    del corpus_f
+    count_bytes_ms = (b * d * 2 + n * d * 2 + 2 * b * 4) / HBM_BYTES_PER_S * 1e3
+    count_ops_ms = 2 * b * n / INT32_OPS * 1e3  # a compare and an add
+    count_bound = bound_of(count_bytes_ms, dot_ms, count_ops_ms)
+    print(f"count_at_least at B={b} N={n} D={d}: kernel {count_ms:.3f} ms, "
+          f"plain {count_plain_ms:.3f} ms, (q @ c.T >= tau).sum(-1) in f32 "
+          f"{count_lib_ms:.3f} ms; bound {count_bound['bound_ms']:.3f} ms "
+          f"(bytes {count_bytes_ms:.3f}, bf16 dot on tensor cores "
+          f"{dot_ms:.3f}, compare + add {count_ops_ms:.3f}) [{card}]")
+
+    # kernel 5: the fused selector's sweep (keep-3, one merge level)
+    fused_geom = {k: v for k, v in geom.items()
+                  if k not in ("track_discards", "reserve_bits")}
+    fused_kw = dict(merge_levels=1, merge_keep=3, capacity=128, **fused_geom)
+    fused_ms = cuda_ms(
+        lambda: kernels.packed_scan_select(q_s, corpus, None, BENCH_K,
+                                           **fused_kw),
+        iters=5,
+    )
+    fused_plain_ms = cuda_ms(
+        lambda: topk.packed_lane_scan_select_plain(q_s, corpus, None, BENCH_K,
+                                                   **fused_kw),
+        iters=2,
+    )
+
+    def two_kernels():
+        keys, dmax = kernels.packed_scan(q_s, corpus, None, **geom)
+        merged, dmax = topk._merge_slots(keys, dmax, 1, 3)
+        return kernels.threshold_select(merged, BENCH_K, **opts), dmax
+
+    two_ms = cuda_ms(two_kernels, iters=5)
+    fused_bytes_ms = (b * d * 2 + n * d * 2 + 2 * b * 128 * 4 + b * 4
+                      ) / HBM_BYTES_PER_S * 1e3
+    # the contest, 8 per lane pair for the keep-3 merge, then the select
+    fused_ops_ms = int_ms + (8 * b * (ct // 2) + (bits + 3) * b * w
+                             ) / INT32_OPS * 1e3
+    fused_bound = bound_of(fused_bytes_ms, dot_ms, fused_ops_ms)
+    print(f"packed_scan_select at B={b} N={n} D={d} ct={ct} keep-3 k={BENCH_K}"
+          f": kernel {fused_ms:.3f} ms, plain {fused_plain_ms:.3f} ms, "
+          f"packed_scan + merge + threshold_select {two_ms:.3f} ms; bound "
+          f"{fused_bound['bound_ms']:.3f} ms (bytes {fused_bytes_ms:.3f}, "
+          f"bf16 dot on tensor cores {dot_ms:.3f}, int32 contest + merge + "
+          f"select {fused_ops_ms:.3f}) [{card}]")
     return {
         "packed_scan": dict(ms=scan_ms, plain_ms=scan_plain_ms,
-                            bound_ms=scan_bound,
-                            bound_by="bytes" if bytes_ms >= max(dot_ms, int_ms)
-                            else "operations"),
+                            **bound_of(bytes_ms, dot_ms, int_ms)),
         "threshold_select": dict(ms=sel_ms, plain_ms=sel_plain_ms,
-                                 bound_ms=sel_bound,
-                                 bound_by="bytes" if sel_bytes_ms >= sel_ops_ms
-                                 else "operations",
-                                 library_ms=sel_lib_ms),
+                                 library_ms=sel_lib_ms,
+                                 **bound_of(sel_bytes_ms, sel_ops_ms)),
+        "lane_max_scan": dict(ms=lane_ms, plain_ms=lane_plain_ms,
+                              **lane_bound),
+        "count_at_least": dict(ms=count_ms, plain_ms=count_plain_ms,
+                               library_ms=count_lib_ms, **count_bound),
+        "packed_scan_select": dict(ms=fused_ms, plain_ms=fused_plain_ms,
+                                   **fused_bound),
     }
 
 
@@ -723,35 +1254,47 @@ def main() -> int:
 
     scan = phase_scan(dev)
     select = phase_select(scan)
+    lane = phase_lane_scan(dev, scan["queries"], scan["corpus"])
+    count = phase_count(dev, scan["queries"], scan["corpus"], lane)
+    fused = phase_fused_select(dev, scan["queries"], scan["corpus"])
+    del lane["vals"], scan["keys"]
     serving = phase_serving(dev, card)
     guaranteed = phase_guaranteed(dev, card)
-    timings = phase_timings(guaranteed, select, card)
+    certified = phase_certified(dev, card, guaranteed)
+    timings = phase_timings(guaranteed, select, certified, card)
     phase_profile(guaranteed, card)
 
+    # launches on the main paths only: each path ran with the counts set
+    # to 0 just before it and read just after
     launches = {
-        name: serving["launches"][name] + guaranteed["launches"][name]
+        name: sum(phase["launches"][name]
+                  for phase in (serving, guaranteed, certified))
         for name in kernels.LAUNCHES
+    }
+    for name, count_ in launches.items():
+        check(count_ > 0, f"no main path launched {name}")
+    # name -> (line of the TPU kernel, error against the plain version,
+    # library yardstick where the timings hold none)
+    ported = {
+        "packed_scan": (658, scan["max_abs_err"], guaranteed["library_ms"]),
+        "threshold_select": (1365, select["max_abs_err"], None),
+        "lane_max_scan": (127, lane["max_abs_err"], guaranteed["library_ms"]),
+        "count_at_least": (456, count["max_abs_err"], None),
+        "packed_scan_select": (938, fused["max_abs_err"],
+                               guaranteed["library_ms"]),
     }
     entries = [
         {
-            "name": "packed_scan",
+            "name": name,
             "route": "cuda",
-            "source": "xfmr_rec_torch/csrc/packed_scan.cu",
-            "replaces": "xfmr_rec_tpu/ops/topk_pallas.py:658",
-            "launches": launches["packed_scan"],
-            "max_abs_err": scan["max_abs_err"],
-            "library_ms": guaranteed["library_ms"],
-            **timings["packed_scan"],
-        },
-        {
-            "name": "threshold_select",
-            "route": "cuda",
-            "source": "xfmr_rec_torch/csrc/threshold_select.cu",
-            "replaces": "xfmr_rec_tpu/ops/topk_pallas.py:1365",
-            "launches": launches["threshold_select"],
-            "max_abs_err": select["max_abs_err"],
-            **timings["threshold_select"],
-        },
+            "source": f"xfmr_rec_torch/csrc/{name}.cu",
+            "replaces": f"xfmr_rec_tpu/ops/topk_pallas.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": err,
+            "library_ms": library_ms,
+            **timings[name],
+        }
+        for name, (line, err, library_ms) in ported.items()
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

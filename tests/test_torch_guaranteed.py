@@ -70,15 +70,6 @@ def test_packed_certified_topk_int8_recompute():
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
 
 
-def test_fused_selector_names_missing_kernel():
-    q, c, _, bound = exact_inputs(71, 8, 256, 16)
-    with pytest.raises(NotImplementedError, match="kernel 5"):
-        port.packed_certified_parts(
-            torch.from_numpy(q), torch.from_numpy(c), 5, score_bound=bound,
-            batch_tile=8, corpus_tile=128, selector="fused",
-        )
-
-
 @pytest.mark.parametrize("keep", [2, 3])
 def test_packed_topk_excluding(keep):
     q, c, _, bound = exact_inputs(80 + keep, 6, 1024, 16)

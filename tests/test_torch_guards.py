@@ -14,7 +14,7 @@ import torch
 
 import xfmr_rec_torch
 from xfmr_rec_torch import resolve_device
-from xfmr_rec_torch.ops import kernels, topk
+from xfmr_rec_torch.ops import kernels, topk, topk_f32
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "xfmr_rec_tpu")
@@ -85,8 +85,8 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a kernel launch was attempted on the CPU")
 
-    monkeypatch.setattr(kernels, "packed_scan", refuse)
-    monkeypatch.setattr(kernels, "threshold_select", refuse)
+    for name in kernels.LAUNCHES:
+        monkeypatch.setattr(kernels, name, refuse)
     kernels.reset_launch_counts()
     rng = np.random.default_rng(0)
     q = torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32))
@@ -100,7 +100,25 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     )
     top, lanes = topk.select_topk_keys(pool, 10)
     assert top.shape == lanes.shape == (4, 10)
-    assert kernels.launch_counts() == {"packed_scan": 0, "threshold_select": 0}
+    vals, pos, evicted = topk_f32.lane_max_scan(
+        q, c, batch_tile=8, corpus_tile=256, slots=2, track_discards=True
+    )
+    assert vals.shape == pos.shape == (8, 512) and evicted.shape == (8, 1)
+    counts = topk_f32.count_at_least(
+        q, c, vals[:, 0], batch_tile=8, corpus_tile=256
+    )
+    assert counts.shape == (8,) and (counts >= 1).all()
+    sel_keys, sel_lanes, dmax = topk.packed_lane_scan_select(
+        q, c, 10, score_bound=8.0, batch_tile=8, corpus_tile=256,
+        merge_levels=1, merge_keep=3,
+    )
+    assert sel_keys.shape == sel_lanes.shape == (8, 128)
+    assert dmax.shape == (8,)
+    assert set(kernels.launch_counts()) == {
+        "packed_scan", "threshold_select", "lane_max_scan",
+        "count_at_least", "packed_scan_select",
+    }
+    assert not any(kernels.launch_counts().values())
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -111,9 +129,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.threshold_select(
             torch.zeros((2, 256), dtype=torch.int32), 5, capacity=128
         )
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.lane_max_scan(q, q, None, corpus_tile=8, slots=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.count_at_least(q, q, torch.zeros(8), corpus_tile=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.packed_scan_select(q, q, None, 5, corpus_tile=8, idx_bits=1)
 
 
-@pytest.mark.parametrize("module", ["ops/topk.py", "ops/kernels.py"])
+@pytest.mark.parametrize(
+    "module", ["ops/topk.py", "ops/topk_f32.py", "ops/kernels.py"]
+)
 def test_no_try_around_kernel_paths(module):
     """A kernel path that fails must fail: neither the dispatching module
     nor the launch module may hold a try statement (no caught build or
@@ -131,7 +157,39 @@ def test_build_without_nvcc_fails_loudly(monkeypatch, tmp_path):
 
 
 def test_kernel_sources_present():
+    assert set(kernels.SOURCES) == {
+        "packed_scan.cu", "threshold_select.cu", "lane_max_scan.cu",
+        "count_at_least.cu", "packed_scan_select.cu",
+    }
     for name in kernels.SOURCES:
         source = (kernels.CSRC_DIR / name).read_text()
         assert "Replaces:" in source and "extern \"C\"" in source
+        assert "__global__" in source
+        # each kernel has a wrapper of its source's name and a counter
+        stem = name.removesuffix(".cu")
+        assert callable(getattr(kernels, stem)) and stem in kernels.LAUNCHES
+        assert f"xfmr_{stem}(" in source
+    for name in kernels.HEADERS:
+        assert (kernels.CSRC_DIR / name).exists()
+    # every header a source includes is hashed into the build's name
+    included = {
+        line.split('"')[1]
+        for path in kernels.CSRC_DIR.iterdir()
+        for line in path.read_text().splitlines()
+        if line.startswith('#include "')
+    }
+    assert included == set(kernels.HEADERS)
     importlib.import_module("xfmr_rec_torch.ops.kernels")
+
+
+@pytest.mark.parametrize(
+    "source", ["lane_max_scan.cu", "count_at_least.cu", "packed_scan_select.cu"]
+)
+def test_scan_kernels_do_their_own_dot(source):
+    """The dot of each scan kernel is its own fmaf chain (the shared
+    `tile_dot`), not a library call."""
+    text = (kernels.CSRC_DIR / source).read_text()
+    assert "tile_dot<" in text or "packed_sweep<" in text
+    for banned in ("cublas", "cutlass", "#include <torch", "#include <aten"):
+        assert banned not in text.lower()
+    assert "fmaf(" in (kernels.CSRC_DIR / "scan_common.cuh").read_text()

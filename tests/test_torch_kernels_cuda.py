@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from xfmr_rec_torch.ops import kernels, topk
+from xfmr_rec_torch.ops import kernels, topk, topk_f32
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +98,111 @@ def test_threshold_select_matches_plain(card, width):
         )
         torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
         torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+
+
+def scan_tensors(card, seed, batch, num_items, dim, int8=False, f32=False):
+    q, c, scales, bound = exact_inputs(seed, batch, num_items, dim, int8=int8)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    tq = torch.from_numpy(q).to(card, dtype)
+    tc = torch.from_numpy(c).to(card)
+    tc = tc if int8 else tc.to(dtype)
+    ts = None if scales is None else torch.from_numpy(scales).to(card)
+    return tq, tc, ts, bound
+
+
+def on_cpu(tensor):
+    return None if tensor is None else tensor.cpu()
+
+
+@pytest.mark.parametrize("slots", [1, 2])
+@pytest.mark.parametrize(
+    "opts",
+    [
+        dict(),
+        dict(track_discards=True),
+        dict(track_discards=True, lane_shuffle=1),
+        dict(track_discards=True, lane_shuffle=3, true_num_items=1500),
+        dict(track_discards=True, int8=True),
+        dict(track_discards=True, f32=True, lane_shuffle=1),
+        # tiles narrower than a block's lanes, rows that fill no block
+        dict(track_discards=True, dim=32, corpus_tile=64, lane_shuffle=5),
+    ],
+)
+def test_lane_max_scan_matches_plain(card, slots, opts):
+    opts = dict(opts)
+    int8 = opts.pop("int8", False)
+    f32 = opts.pop("f32", False)
+    dim = opts.pop("dim", 64)
+    opts.setdefault("corpus_tile", 512)
+    tq, tc, ts, _ = scan_tensors(card, 2, 70, 2048, dim, int8=int8, f32=f32)
+    kw = dict(batch_tile=70, slots=slots, **opts)
+    before = kernels.launch_counts()["lane_max_scan"]
+    got = topk_f32.lane_max_scan(tq, tc, scales=ts, **kw)
+    assert kernels.launch_counts()["lane_max_scan"] == before + 1
+    want = topk_f32.lane_max_scan(tq.cpu(), tc.cpu(), scales=on_cpu(ts), **kw)
+    assert len(got) == len(want)
+    for g, w in zip(got, want, strict=True):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("true_num_items", [None, 1500])
+def test_count_at_least_matches_plain(card, f32, true_num_items):
+    tq, tc, _, _ = scan_tensors(card, 3, 70, 2048, 64, f32=f32)
+    scores = tq.float() @ tc.float().T
+    tau = torch.sort(scores, dim=1).values[:, -20].contiguous()
+    kw = dict(batch_tile=70, corpus_tile=512, true_num_items=true_num_items)
+    before = kernels.launch_counts()["count_at_least"]
+    got = topk_f32.count_at_least(tq, tc, tau, **kw)
+    assert kernels.launch_counts()["count_at_least"] == before + 1
+    want = topk_f32.count_at_least(tq.cpu(), tc.cpu(), tau.cpu(), **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_count_certifies_what_the_scan_found(card):
+    """tau comes from the scan kernel: its own item must count, so a row
+    whose k-th and (k+1)-th scores differ counts exactly k."""
+    g = torch.Generator(device=card).manual_seed(4)
+    q = torch.randn(256, 64, device=card, generator=g).bfloat16()
+    c = torch.randn(1 << 15, 64, device=card, generator=g).bfloat16()
+    kw = dict(batch_tile=256, corpus_tile=2048)
+    vals, _, exact = topk_f32.certified_topk(q, c, 50, method="count", **kw)
+    _, _, exact_d = topk_f32.certified_topk(q, c, 50, method="discard", **kw)
+    dense = torch.sort(q.float() @ c.float().T, dim=1, descending=True).values
+    no_tie = (dense[:, 49] - dense[:, 50]) > 1e-4
+    assert bool((exact == exact_d)[no_tie].all())
+    assert int(exact.sum()) > 0
+
+
+@pytest.mark.parametrize(
+    "opts",
+    [
+        dict(merge_levels=0),
+        dict(merge_levels=1),
+        dict(merge_levels=2),
+        dict(merge_levels=1, merge_keep=3),
+        dict(merge_levels=1, merge_keep=3, lane_shuffle=3),
+        dict(merge_levels=1, merge_keep=3, true_num_items=1500),
+        dict(merge_levels=1, merge_keep=3, int8=True),
+        dict(merge_levels=1, merge_keep=3, bias_in_dot=True),
+    ],
+)
+def test_packed_scan_select_matches_plain(card, opts):
+    opts = dict(opts)
+    int8 = opts.pop("int8", False)
+    tq, tc, ts, bound = scan_tensors(card, 5, 70, 2048, 64, int8=int8)
+    if opts.get("bias_in_dot"):
+        tc = torch.cat([tc, torch.full_like(tc[:, :1], 1.5)], dim=1)
+    kw = dict(score_bound=bound, batch_tile=70, corpus_tile=512, **opts)
+    before = kernels.launch_counts()
+    got = topk.packed_lane_scan_select(tq, tc, 100, scales=ts, **kw)
+    after = kernels.launch_counts()
+    # one launch of the fused kernel, none of the two-kernel path
+    assert after["packed_scan_select"] == before["packed_scan_select"] + 1
+    assert after["packed_scan"] == before["packed_scan"]
+    assert after["threshold_select"] == before["threshold_select"]
+    want = topk.packed_lane_scan_select(
+        tq.cpu(), tc.cpu(), 100, scales=on_cpu(ts), **kw
+    )
+    for g, w in zip(got, want, strict=True):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)

@@ -3,14 +3,14 @@
 Port of `xfmr_rec_tpu/index/mips.py`: the corpus lives on the card as
 one (N, D) bf16, f32 or int8 (+ per-item scale) matrix and every search
 is exhaustive. `method="scan"` rides the packed-key kernels
-(`ops/topk.py`); `method="dense"` scores with one matmul and a stable
-top-k. The on-disk layout (`corpus.npz` + `index.json`) is the JAX
-package's, so an index saved by either package loads in the other.
+(`ops/topk.py`, `scan_kernel="packed"`) or the f32 lane-max kernel
+(`ops/topk_f32.py`, `scan_kernel="f32"`); `method="dense"` scores with
+one matmul and a stable top-k. The on-disk layout (`corpus.npz` +
+`index.json`) is the JAX package's, so an index saved by either package
+loads in the other.
 
-Not ported yet (ROADMAP.md, Queue 1): BM25 text search, the f32 lane-max
-scan (`scan_kernel="f32"`) and the f32 / "packed" certified methods,
-which need kernels 3 and 4, and catalog mutation
-(`add_items`/`remove_items`).
+Not ported yet (ROADMAP.md, Queue 1): BM25 text search and catalog
+mutation (`add_items`/`remove_items`).
 """
 
 from __future__ import annotations
@@ -23,10 +23,17 @@ import torch
 
 from xfmr_rec_torch.device import resolve_device
 from xfmr_rec_torch.ops.topk import (
+    decode_scores,
+    exact_scores_at,
+    packed_certified_parts,
     packed_guaranteed_topk,
     packed_topk_excluding,
     pick_corpus_tile,
     topk_stable,
+)
+from xfmr_rec_torch.ops.topk_f32 import (
+    certified_topk_parts,
+    scan_topk_excluding,
 )
 
 NEG_INF = float("-inf")
@@ -205,9 +212,6 @@ class RetrievalIndex(CorpusMetadata):
                 if emb.shape[0]
                 else 0.0
             )
-        if method == "scan" and scan_kernel == "f32":
-            msg = f"scan_kernel='f32' needs the lane-max scan kernel, {_NOT_PORTED}"
-            raise NotImplementedError(msg)
         self.method = method
         self.scan_kernel = scan_kernel
         self.last_certified_stats: dict = {}
@@ -266,7 +270,18 @@ class RetrievalIndex(CorpusMetadata):
         exclude_positions = torch.as_tensor(exclude_positions).to(
             self.device, torch.int32
         )
-        if self.method == "scan":
+        if self.method == "scan" and self.scan_kernel == "f32":
+            corpus, scales, tile, true_n = self._scan_setup()
+            scores, positions = scan_topk_excluding(
+                queries,
+                corpus,
+                top_k,
+                exclude_positions=exclude_positions,
+                true_num_items=true_n,
+                corpus_tile=tile,
+                scales=scales,
+            )
+        elif self.method == "scan":
             corpus, scales, tile, true_n = self._scan_setup()
             # score bound on the device, in f32, as the reference does
             qnorm = torch.linalg.vector_norm(queries.float(), dim=-1).max()
@@ -299,22 +314,36 @@ class RetrievalIndex(CorpusMetadata):
         queries: np.ndarray | torch.Tensor,
         *,
         top_k: int,
-        method: str = "fused",
+        method: str = "f32",
         exact_scores: bool = False,
     ) -> tuple[np.ndarray, np.ndarray]:
         """Guaranteed-exact batched search (no exclusions).
 
-        method="fused": the packed pass 1 with discard certificates,
-        lane-shuffled retries and key-space pool merges
-        (`packed_guaranteed_topk`), then the dense exact path for the
-        rows still uncertified. Every returned row is the exact top-k of
-        the packed (quantized-score) order. Scores are quantum-floor
-        decodes, or exact f32 with `exact_scores=True`.
+        Returns (scores (B, k), item_ids (B, k)); every row is provably
+        the exact top-k by score multiset. `last_certified_stats` holds
+        how many rows each stage left uncertified.
+
+        method="f32": three escalating stages, each certifying per row:
+        1. one lane-max sweep with discard-max certificates
+           (`certified_topk_parts`);
+        2. for the uncertified rows, retry sweeps with shuffled lane
+           mappings (shuffles 1, 3, 5 decorrelate the collisions of the
+           earlier passes); the merged candidate pool certifies when
+           the minimum of dmax over the passes is at most the merged
+           k-th score;
+        3. the dense exact path for anything still uncertified.
+
+        method="packed": the same escalation on the packed-key scan, in
+        int32 key space. The k-set is exact in the packed order (scores
+        quantized at the key quantum: items within one quantum of the
+        k-th score may swap). Scores are quantum-floor decodes, or exact
+        f32 with `exact_scores=True`.
+
+        method="fused": the guarantee of "packed" with pass 1, retries
+        and pool merges on the device (`packed_guaranteed_topk`), the
+        dense path only for its residual.
         """
-        if method != "fused":
-            if method in ("f32", "packed"):
-                msg = f"search_certified(method={method!r}) is {_NOT_PORTED}"
-                raise NotImplementedError(msg)
+        if method not in ("f32", "packed", "fused"):
             msg = f"unknown certified search method {method!r}"
             raise ValueError(msg)
         if torch.is_tensor(queries):
@@ -322,23 +351,193 @@ class RetrievalIndex(CorpusMetadata):
         queries_f32 = np.asarray(queries, np.float32)
         if queries_f32.ndim == 1:
             queries_f32 = queries_f32[None, :]
-        corpus, scales, tile, true_n = self._scan_setup()
-        # host-side bound, in f64 then rounded to f32, as the reference
+        if method == "f32":
+            scores, positions = self._search_certified_f32(queries_f32, top_k)
+        elif method == "packed":
+            scores, positions = self._search_certified_packed(
+                queries_f32, top_k, exact_scores
+            )
+        else:
+            scores, positions = self._search_certified_fused(
+                queries_f32, top_k, exact_scores
+            )
+        return scores, self._ids32[positions]
+
+    def _padded_queries(self, queries_f32: np.ndarray, floor: int):
+        """Rows zero-padded to a power of two of at least `floor`, on the
+        device in the query dtype (zero queries certify trivially)."""
+        rows = queries_f32.shape[0]
+        width = max(floor, 1 << (rows - 1).bit_length())
+        padded = np.zeros((width, self.dim), dtype=np.float32)
+        padded[:rows] = queries_f32
+        return torch.from_numpy(padded).to(self.device, self._query_dtype)
+
+    def _score_bound(self, queries_f32: np.ndarray) -> torch.Tensor:
+        """Sound packed score bound for these queries: max ||q|| times
+        the largest (dequantized) corpus row norm, 5% over for bf16
+        rounding; on the host in f64, rounded to f32, as the reference."""
         qnorm = float(np.linalg.norm(queries_f32, axis=-1).max())
-        bound = torch.tensor(
+        return torch.tensor(
             np.float32(max(self._corpus_maxnorm * qnorm * 1.05, 1e-6)),
             device=self.device,
         )
+
+    def _dense_rows(
+        self, queries_f32: np.ndarray, rows: np.ndarray, top_k: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Dense exact (scores, positions) of the given query rows."""
+        scores, positions = self._dense_exact(
+            self._padded_queries(queries_f32[rows], 8), top_k
+        )
+        return (
+            scores.cpu().numpy()[: rows.size],
+            positions.cpu().numpy()[: rows.size],
+        )
+
+    def _host_escalation(self, queries_f32, top_k, sweep, certify):
+        """Pass 1, lane-shuffled retries and host-side pool merges.
+
+        `sweep(queries_dev, shuffle)` -> device (values, positions,
+        dmax) with values descending per row (f32 scores or int32 keys);
+        `certify(dmax, tau)` -> the row's k-th value `tau` proves it
+        exact. Returns (values, positions, bad, stats): host arrays over
+        the padded batch, `bad` the rows no stage certified.
+        """
         true_batch = queries_f32.shape[0]
-        width = max(8, 1 << (true_batch - 1).bit_length())
-        queries_dev = torch.from_numpy(
-            np.pad(queries_f32, ((0, width - true_batch), (0, 0)))
-        ).to(self.device, self._query_dtype)
+        parts = sweep(self._padded_queries(queries_f32, 8), 0)
+        values, positions, best_dmax = (p.cpu().numpy() for p in parts)
+        # per-row min of dmax over passes: an element above the merged
+        # tau missing from the candidate union was evicted in EVERY pass
+        uncertified = ~certify(best_dmax, values[:, top_k - 1])
+        uncertified[true_batch:] = False
+        bad = np.nonzero(uncertified)[0]
+        stats = {"batch": true_batch, "pass1_bad": int(bad.size)}
+        pools = {int(b): (positions[b], values[b]) for b in bad}
+        for shuffle in (1, 3, 5):
+            if not bad.size:
+                break
+            parts = sweep(self._padded_queries(queries_f32[bad], 128), shuffle)
+            v, p, d = (x.cpu().numpy()[: bad.size] for x in parts)
+            still_bad = []
+            for row, b in enumerate(bad):
+                b = int(b)
+                best_dmax[b] = min(best_dmax[b], d[row])
+                pool_pos = np.concatenate([pools[b][0], p[row]])
+                pool_val = np.concatenate([pools[b][1], v[row]])
+                # dedupe the merged pool by position, keep the best k
+                _, first = np.unique(pool_pos, return_index=True)
+                order = first[np.argsort(-pool_val[first], kind="stable")]
+                take = order[:top_k]
+                pools[b] = (pool_pos[take], pool_val[take])
+                tau = pool_val[take[-1]]
+                if certify(best_dmax[b], tau) and len(take) == top_k:
+                    values[b] = pool_val[take]
+                    positions[b] = pool_pos[take]
+                else:
+                    still_bad.append(b)
+            bad = np.asarray(still_bad, dtype=np.int64)
+        stats["retry_bad"] = int(bad.size)
+        self.last_certified_stats = stats
+        return values, positions, bad
+
+    def _search_certified_f32(self, queries_f32, top_k):
+        corpus, scales, tile, true_n = self._scan_setup()
+
+        def sweep(queries_dev, shuffle):
+            return certified_topk_parts(
+                queries_dev,
+                corpus,
+                top_k,
+                corpus_tile=tile,
+                true_num_items=true_n,
+                lane_shuffle=shuffle,
+                scales=scales,
+            )
+
+        # <=: score-multiset exactness (see `certified_topk`)
+        scores, positions, bad = self._host_escalation(
+            queries_f32, top_k, sweep, lambda dmax, tau: dmax <= tau
+        )
+        if bad.size:
+            scores[bad], positions[bad] = self._dense_rows(
+                queries_f32, bad, top_k
+            )
+        true_batch = queries_f32.shape[0]
+        return scores[:true_batch], positions[:true_batch]
+
+    def _search_certified_packed(self, queries_f32, top_k, exact_scores):
+        corpus, scales, tile, true_n = self._scan_setup()
+        idx_bits = max((corpus.shape[0] // tile - 1).bit_length(), 1)
+        # one keep-3 lane-pair merge cuts the selection width to 1.5 ct;
+        # a pair fails only when it holds >= 4 of a row's top-k, expected
+        # rows ~ k^4 / (24 pairs^3): gate on pairs^3 >= k^4
+        merge_levels = 1 if (tile >> 1) ** 3 >= top_k**4 else 0
+        bound = self._score_bound(queries_f32)
+
+        def sweep(queries_dev, shuffle):
+            return packed_certified_parts(
+                queries_dev,
+                corpus,
+                top_k,
+                score_bound=bound,
+                batch_tile=512,
+                corpus_tile=tile,
+                idx_bits=idx_bits,
+                merge_levels=merge_levels,
+                merge_keep=3,
+                true_num_items=true_n,
+                lane_shuffle=shuffle,
+                scales=scales,
+            )
+
+        # padding keys are 0 but merge stamps can raise them to
+        # (1 << merge_levels) - 1; real keys are >= bitcast(1.25)
+        min_real = (1 << merge_levels) - 1
+        keys, positions, bad = self._host_escalation(
+            queries_f32,
+            top_k,
+            sweep,
+            lambda dmax, tau: (dmax <= tau) & (tau > min_real),
+        )
+        dense_scores = None
+        if bad.size:
+            dense_scores, positions[bad] = self._dense_rows(
+                queries_f32, bad, top_k
+            )
+        true_batch = queries_f32.shape[0]
+        if exact_scores:
+            # exact-score epilogue over the whole (padded) batch, then
+            # re-sort rows descending (quantum ties are key-misordered)
+            exact = exact_scores_at(
+                self._padded_queries(queries_f32, 8),
+                self.corpus,
+                torch.from_numpy(positions).to(self.device),
+                scales=self._scales,
+            ).cpu().numpy()
+            order = np.argsort(-exact, axis=-1, kind="stable")
+            scores = np.take_along_axis(exact, order, axis=-1)
+            positions = np.take_along_axis(positions, order, axis=-1)
+        else:
+            # the (already descending) keys back to quantum-floor scores;
+            # dense-fallback rows keep their exact dense scores
+            scores = decode_scores(
+                torch.from_numpy(keys),
+                idx_bits=idx_bits,
+                score_bound=bound.cpu(),
+                reserve_bits=merge_levels,
+            ).numpy()
+            if dense_scores is not None:
+                scores[bad] = dense_scores
+        return scores[:true_batch], positions[:true_batch]
+
+    def _search_certified_fused(self, queries_f32, top_k, exact_scores):
+        corpus, scales, tile, true_n = self._scan_setup()
+        true_batch = queries_f32.shape[0]
         scores, positions, exact = packed_guaranteed_topk(
-            queries_dev,
+            self._padded_queries(queries_f32, 8),
             corpus,
             top_k,
-            score_bound=bound,
+            score_bound=self._score_bound(queries_f32),
             batch_tile=512,
             corpus_tile=tile,
             merge_levels=1,
@@ -357,16 +556,10 @@ class RetrievalIndex(CorpusMetadata):
             "pipeline_bad": int(bad.size),
         }
         if bad.size:
-            rw = max(8, 1 << (int(bad.size) - 1).bit_length())
-            retry = np.zeros((rw, self.dim), dtype=np.float32)
-            retry[: bad.size] = queries_f32[bad]
-            s3, p3 = self._dense_exact(
-                torch.from_numpy(retry).to(self.device, self._query_dtype),
-                top_k,
+            scores[bad], positions[bad] = self._dense_rows(
+                queries_f32, bad, top_k
             )
-            scores[bad] = s3.cpu().numpy()[: bad.size]
-            positions[bad] = p3.cpu().numpy()[: bad.size]
-        return scores, self._ids32[positions]
+        return scores, positions
 
     def add_items(self, *args, **kwargs) -> None:
         msg = f"RetrievalIndex.add_items is {_NOT_PORTED}"

@@ -1,17 +1,19 @@
 """Build, bind and launch the hand-written Hopper kernels.
 
-Sources live in `xfmr_rec_torch/csrc/*.cu`. At first use each source is
-compiled by its own `nvcc` (all started together) for `sm_90a`, and the
-objects are linked into one shared library with a plain C interface,
-loaded with ctypes. The library lands in `build/kernels/` at the root of
-the checkout, named by a hash of the sources and flags, so a changed
-source rebuilds and an unchanged one loads straight away.
+Sources live in `xfmr_rec_torch/csrc/*.cu`, with the device code they
+share in `*.cuh` beside them. At first use each source is compiled by its
+own `nvcc` (all started together) for `sm_90a`, and the objects are
+linked into one shared library with a plain C interface, loaded with
+ctypes. The library lands in `build/kernels/` at the root of the
+checkout, named by a hash of the sources, headers and flags, so a changed
+file rebuilds and an unchanged tree loads straight away.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with `torch.empty`/`torch.zeros`, launches on PyTorch's current
 stream, raises if the launch returned a CUDA error, and adds one to its
 launch count. A wrapper never runs on the CPU: the callers in
-`ops/topk.py` send CPU tensors to the plain versions themselves.
+`ops/topk.py` and `ops/topk_f32.py` send CPU tensors to the plain
+versions themselves.
 """
 
 from __future__ import annotations
@@ -28,7 +30,14 @@ import torch
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("packed_scan.cu", "threshold_select.cu")
+SOURCES = (
+    "packed_scan.cu",
+    "threshold_select.cu",
+    "lane_max_scan.cu",
+    "count_at_least.cu",
+    "packed_scan_select.cu",
+)
+HEADERS = ("scan_common.cuh", "packed_sweep.cuh", "select_common.cuh")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -40,7 +49,13 @@ NVCC_FLAGS = (
 
 # launches per kernel since the last reset (read by chip_smoke.py to show
 # that a path went through the kernels)
-LAUNCHES = {"packed_scan": 0, "threshold_select": 0}
+LAUNCHES = {
+    "packed_scan": 0,
+    "threshold_select": 0,
+    "lane_max_scan": 0,
+    "count_at_least": 0,
+    "packed_scan_select": 0,
+}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -80,7 +95,7 @@ def build(verbose: bool = False) -> pathlib.Path:
     """
     global last_build_log
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC_DIR / name).read_bytes())
     tag = digest.hexdigest()[:16]
     lib_path = BUILD_DIR / f"libxfmr_kernels_{tag}.so"
@@ -147,6 +162,36 @@ def load() -> ctypes.CDLL:
                 _VOID,  # stream
             ]
             lib.xfmr_threshold_select.restype = _INT
+            lib.xfmr_lane_max_scan.argtypes = [
+                _VOID, _VOID, _VOID,  # q, corpus, scales
+                _VOID, _VOID, _VOID,  # vals, pos, dmax
+                _INT, _INT, _INT, _INT,  # batch, dim, num_tiles, corpus_tile
+                _INT, _INT, _INT, _INT,  # slots, true_n, shuffle, discards
+                _INT, _INT,  # q_kind, corpus_kind
+                _VOID,  # stream
+            ]
+            lib.xfmr_lane_max_scan.restype = _INT
+            lib.xfmr_count_at_least.argtypes = [
+                _VOID, _VOID, _VOID, _VOID,  # q, corpus, tau, counts
+                _INT, _INT, _INT, _INT,  # batch, dim, num_tiles, corpus_tile
+                _INT,  # true_n
+                _INT, _INT,  # q_kind, corpus_kind
+                _VOID,  # stream
+            ]
+            lib.xfmr_count_at_least.restype = _INT
+            lib.xfmr_packed_scan_select.argtypes = [
+                _VOID, _VOID, _VOID,  # q, corpus, scales
+                _VOID, _VOID,  # work, arrivals
+                _VOID, _VOID, _VOID,  # keys, meta, dmax
+                _INT, _INT, _INT, _INT,  # batch, dim, num_tiles, corpus_tile
+                _INT, _INT, _INT, _INT,  # true_n, shuffle, low_mask, reserve
+                _INT,  # add_bias
+                _INT, _INT, _INT,  # k, capacity, quantum_bits
+                _INT, _INT, _INT,  # merge_levels, keep3, pool_width
+                _INT, _INT,  # q_kind, corpus_kind
+                _VOID,  # stream
+            ]
+            lib.xfmr_packed_scan_select.restype = _INT
             _lib = lib
     return _lib
 
@@ -177,6 +222,44 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(msg)
 
 
+def _check_scan(
+    kernel: str,
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    scales: torch.Tensor | None,
+    corpus_tile: int,
+    pairs: set = _SCAN_PAIRS,
+) -> tuple[int, int, int]:
+    """Argument checks shared by the scan kernels; returns (batch, dim,
+    num_tiles)."""
+    _check_cuda("queries", queries)
+    _check_cuda("corpus", corpus)
+    pair = (queries.dtype, corpus.dtype)
+    if pair not in pairs:
+        msg = f"{kernel} takes (query, corpus) dtypes {pairs}, got {pair}"
+        raise ValueError(msg)
+    batch, dim = queries.shape
+    num_items = corpus.shape[0]
+    if corpus.shape[1] != dim:
+        msg = f"query dim {dim} != corpus dim {corpus.shape[1]}"
+        raise ValueError(msg)
+    if not 0 < dim <= MAX_SCAN_DIM:
+        msg = f"{kernel} supports dim <= {MAX_SCAN_DIM}, got {dim}"
+        raise ValueError(msg)
+    if corpus_tile <= 0 or num_items % corpus_tile:
+        msg = f"{num_items=} must be a multiple of {corpus_tile=}"
+        raise ValueError(msg)
+    if scales is not None:
+        _check_cuda("scales", scales)
+        if scales.dtype != torch.float32 or scales.numel() != num_items:
+            msg = "scales must be float32 with one entry per corpus row"
+            raise ValueError(msg)
+    if queries.device != corpus.device:
+        msg = "queries and corpus must be on the same device"
+        raise ValueError(msg)
+    return batch, dim, num_items // corpus_tile
+
+
 def packed_scan(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -192,31 +275,9 @@ def packed_scan(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch the packed scan kernel (same arguments and results as
     `ops.topk.packed_lane_scan_plain`)."""
-    _check_cuda("queries", queries)
-    _check_cuda("corpus", corpus)
-    pair = (queries.dtype, corpus.dtype)
-    if pair not in _SCAN_PAIRS:
-        msg = f"packed_scan takes (query, corpus) dtypes {_SCAN_PAIRS}, got {pair}"
-        raise ValueError(msg)
-    batch, dim = queries.shape
-    num_items = corpus.shape[0]
-    if corpus.shape[1] != dim:
-        msg = f"query dim {dim} != corpus dim {corpus.shape[1]}"
-        raise ValueError(msg)
-    if not 0 < dim <= MAX_SCAN_DIM:
-        msg = f"packed_scan supports dim <= {MAX_SCAN_DIM}, got {dim}"
-        raise ValueError(msg)
-    if corpus_tile <= 0 or num_items % corpus_tile:
-        msg = f"{num_items=} must be a multiple of {corpus_tile=}"
-        raise ValueError(msg)
-    if scales is not None:
-        _check_cuda("scales", scales)
-        if scales.dtype != torch.float32 or scales.numel() != num_items:
-            msg = "scales must be float32 with one entry per corpus row"
-            raise ValueError(msg)
-    if queries.device != corpus.device:
-        msg = "queries and corpus must be on the same device"
-        raise ValueError(msg)
+    batch, dim, num_tiles = _check_scan(
+        "packed_scan", queries, corpus, scales, corpus_tile
+    )
     keys = torch.empty(
         (batch, 2 * corpus_tile), dtype=torch.int32, device=queries.device
     )
@@ -234,7 +295,7 @@ def packed_scan(
         dmax.data_ptr(),
         batch,
         dim,
-        num_items // corpus_tile,
+        num_tiles,
         corpus_tile,
         -1 if true_num_items is None else int(true_num_items),
         int(lane_shuffle),
@@ -296,3 +357,202 @@ def threshold_select(
     _raise_on(err, "threshold_select")
     LAUNCHES["threshold_select"] += 1
     return keys, meta
+
+
+def lane_max_scan(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    scales: torch.Tensor | None,
+    *,
+    corpus_tile: int,
+    slots: int = 1,
+    track_discards: bool = False,
+    true_num_items: int | None = None,
+    lane_shuffle: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Launch the f32 lane-max scan kernel (same arguments and results as
+    `ops.topk_f32.lane_max_scan_plain`)."""
+    batch, dim, num_tiles = _check_scan(
+        "lane_max_scan", queries, corpus, scales, corpus_tile
+    )
+    if slots not in (1, 2):
+        msg = f"slots must be 1 or 2, got {slots}"
+        raise ValueError(msg)
+    device = queries.device
+    width = slots * corpus_tile
+    vals = torch.empty((batch, width), dtype=torch.float32, device=device)
+    pos = torch.empty((batch, width), dtype=torch.int32, device=device)
+    dmax = None
+    if track_discards:
+        # the kernel reduces into it with atomics
+        dmax = torch.full(
+            (batch,), float("-inf"), dtype=torch.float32, device=device
+        )
+    if batch == 0:
+        return vals, pos, dmax
+    lib = load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.xfmr_lane_max_scan(
+        queries.data_ptr(),
+        corpus.data_ptr(),
+        None if scales is None else scales.data_ptr(),
+        vals.data_ptr(),
+        pos.data_ptr(),
+        None if dmax is None else dmax.data_ptr(),
+        batch,
+        dim,
+        num_tiles,
+        corpus_tile,
+        slots,
+        -1 if true_num_items is None else int(true_num_items),
+        int(lane_shuffle),
+        1 if track_discards else 0,
+        _Q_KINDS[queries.dtype],
+        _CORPUS_KINDS[corpus.dtype],
+        stream,
+    )
+    _raise_on(err, "lane_max_scan")
+    LAUNCHES["lane_max_scan"] += 1
+    return vals, pos, dmax
+
+
+# the count kernel takes no scales, so no int8 corpus
+_COUNT_PAIRS = {
+    (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32),
+}
+
+
+def count_at_least(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    tau: torch.Tensor,
+    *,
+    corpus_tile: int,
+    true_num_items: int | None = None,
+) -> torch.Tensor:
+    """Launch the count kernel (same arguments and result as
+    `ops.topk_f32.count_at_least_plain`)."""
+    batch, dim, num_tiles = _check_scan(
+        "count_at_least", queries, corpus, None, corpus_tile, _COUNT_PAIRS
+    )
+    _check_cuda("tau", tau)
+    if tau.dtype != torch.float32 or tau.shape != (batch,):
+        msg = f"tau must be float32 of shape ({batch},), got {tau.dtype} {tuple(tau.shape)}"
+        raise ValueError(msg)
+    # the kernel adds into it with atomics
+    counts = torch.zeros(batch, dtype=torch.int32, device=queries.device)
+    if batch == 0:
+        return counts
+    lib = load()
+    stream = torch.cuda.current_stream(queries.device).cuda_stream
+    err = lib.xfmr_count_at_least(
+        queries.data_ptr(),
+        corpus.data_ptr(),
+        tau.data_ptr(),
+        counts.data_ptr(),
+        batch,
+        dim,
+        num_tiles,
+        corpus_tile,
+        -1 if true_num_items is None else int(true_num_items),
+        _Q_KINDS[queries.dtype],
+        _CORPUS_KINDS[corpus.dtype],
+        stream,
+    )
+    _raise_on(err, "count_at_least")
+    LAUNCHES["count_at_least"] += 1
+    return counts
+
+
+# rows of one block of the fused kernel: one arrival counter per row tile
+_FUSED_BLOCK_ROWS = 64
+
+
+def packed_scan_select(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    scales: torch.Tensor | None,
+    k: int,
+    *,
+    corpus_tile: int,
+    idx_bits: int,
+    merge_levels: int = 0,
+    merge_keep: int = 2,
+    capacity: int = 128,
+    bias_in_dot: bool = False,
+    true_num_items: int | None = None,
+    lane_shuffle: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the fused scan + merge + select kernel, once (same arguments
+    and results as `ops.topk.packed_lane_scan_select_plain`):
+    (keys (B, capacity), meta (B, capacity), dmax (B,)), all int32.
+    `merge_levels` is taken as given (already clamped)."""
+    batch, dim, num_tiles = _check_scan(
+        "packed_scan_select", queries, corpus, scales, corpus_tile
+    )
+    if merge_keep not in (2, 3):
+        msg = f"merge_keep must be 2 or 3, got {merge_keep}"
+        raise ValueError(msg)
+    keep3 = bool(merge_levels) and merge_keep == 3
+    if keep3 and merge_levels != 1:
+        msg = f"keep-3 merges one level, got {merge_levels=}"
+        raise ValueError(msg)
+    if corpus_tile % (1 << max(merge_levels, 1)):
+        msg = f"{corpus_tile=} does not halve {merge_levels} times"
+        raise ValueError(msg)
+    pool_width = (
+        3 * (corpus_tile >> 1) if keep3 else 2 * (corpus_tile >> merge_levels)
+    )
+    if not 0 < pool_width <= MAX_SELECT_WIDTH:
+        msg = f"packed_scan_select supports pools up to {MAX_SELECT_WIDTH}, got {pool_width}"
+        raise ValueError(msg)
+    if not 0 < k <= capacity <= pool_width:
+        msg = f"need 0 < {k=} <= {capacity=} <= {pool_width=}"
+        raise ValueError(msg)
+    device = queries.device
+    keys = torch.empty((batch, capacity), dtype=torch.int32, device=device)
+    meta = torch.empty_like(keys)
+    # the kernel reduces into dmax and counts arrivals with atomics
+    dmax = torch.zeros(batch, dtype=torch.int32, device=device)
+    if batch == 0:
+        return keys, meta, dmax
+    work = torch.empty(
+        (batch, 2 * corpus_tile), dtype=torch.int32, device=device
+    )
+    arrivals = torch.zeros(
+        -(-batch // _FUSED_BLOCK_ROWS), dtype=torch.int32, device=device
+    )
+    lib = load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.xfmr_packed_scan_select(
+        queries.data_ptr(),
+        corpus.data_ptr(),
+        None if scales is None else scales.data_ptr(),
+        work.data_ptr(),
+        arrivals.data_ptr(),
+        keys.data_ptr(),
+        meta.data_ptr(),
+        dmax.data_ptr(),
+        batch,
+        dim,
+        num_tiles,
+        corpus_tile,
+        -1 if true_num_items is None else int(true_num_items),
+        int(lane_shuffle),
+        (1 << (idx_bits + merge_levels)) - 1,
+        merge_levels,
+        0 if bias_in_dot else 1,
+        k,
+        capacity,
+        idx_bits + merge_levels,
+        merge_levels,
+        1 if keep3 else 0,
+        pool_width,
+        _Q_KINDS[queries.dtype],
+        _CORPUS_KINDS[corpus.dtype],
+        stream,
+    )
+    _raise_on(err, "packed_scan_select")
+    LAUNCHES["packed_scan_select"] += 1
+    return keys, meta, dmax

@@ -12,11 +12,15 @@ lane) keeps its top-2 keys and, optionally, the largest key it ever
 evicted (the discard certificate). Selection, lane-pair merges, retries
 and pool merges then run in key space.
 
-Two functions launch kernels: `packed_lane_scan` (kernel
-`csrc/packed_scan.cu`) and `select_topk_keys` (kernel
-`csrc/threshold_select.cu`). Each sends a CPU tensor to its plain
-PyTorch version (`packed_lane_scan_plain`, `select_topk_keys_plain`,
-same module) and a CUDA tensor to its kernel; nothing falls back.
+Three functions launch kernels: `packed_lane_scan` (kernel
+`csrc/packed_scan.cu`), `select_topk_keys` (kernel
+`csrc/threshold_select.cu`) and `packed_lane_scan_select` (kernel
+`csrc/packed_scan_select.cu`: scan, lane-pair merge and select in one
+launch). Each sends a CPU tensor to its plain PyTorch version
+(`packed_lane_scan_plain`, `select_topk_keys_plain`,
+`packed_lane_scan_select_plain`, same module) and a CUDA tensor to its
+kernel; nothing falls back. The f32 lane-max family is in
+`ops/topk_f32.py`.
 
 Tie order: `lax.top_k` puts the lower index first among equal values,
 and `torch.topk` promises no order. Every selection here goes through
@@ -419,6 +423,169 @@ def _clamp_merge_levels(
     return merge_levels
 
 
+def _pool_width(ct: int, merge_levels: int, merge_keep: int) -> int:
+    """Width of the merged key pool (`merge_levels` already clamped)."""
+    if merge_levels and merge_keep == 3:
+        return 3 * (ct >> 1)
+    return 2 * (ct >> merge_levels)
+
+
+def _merge_slots(
+    keys: torch.Tensor,
+    dmax: torch.Tensor | None,
+    merge_levels: int,
+    merge_keep: int,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(B, 2*ct) slot buffers -> the merged key pool, the merges'
+    discards folded into dmax (`merge_levels` already clamped)."""
+    ct = keys.shape[1] // 2
+    key1, key2 = keys[:, :ct], keys[:, ct:]
+    if merge_levels and merge_keep == 3:
+        key1, key2, key3, disc = merge_lane_pairs3(key1, key2, 0)
+        if dmax is not None:
+            dmax = torch.maximum(dmax, disc)
+        return torch.cat([key1, key2, key3], dim=-1), dmax
+    for level in range(merge_levels):
+        key1, key2, disc = merge_lane_pairs(key1, key2, level)
+        if dmax is not None:
+            dmax = torch.maximum(dmax, disc)
+    return torch.cat([key1, key2], dim=-1), dmax
+
+
+def packed_lane_scan_select_plain(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    scales: torch.Tensor | None,
+    k: int,
+    *,
+    corpus_tile: int,
+    idx_bits: int,
+    merge_levels: int = 0,
+    merge_keep: int = 2,
+    capacity: int = 128,
+    bias_in_dot: bool = False,
+    true_num_items: int | None = None,
+    lane_shuffle: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the fused scan + merge + select kernel:
+    the plain packed scan (discards tracked), the lane-pair merges, then
+    the plain threshold select at the key quantum. Takes the queries
+    already scaled and `merge_levels` already clamped, as the kernel
+    does. Returns (keys (B, capacity), meta (B, capacity), dmax (B,))."""
+    keys, dmax = packed_lane_scan_plain(
+        queries,
+        corpus,
+        scales,
+        corpus_tile=corpus_tile,
+        idx_bits=idx_bits,
+        reserve_bits=merge_levels,
+        bias_in_dot=bias_in_dot,
+        true_num_items=true_num_items,
+        lane_shuffle=lane_shuffle,
+    )
+    pool, dmax = _merge_slots(keys, dmax, merge_levels, merge_keep)
+    sel_keys, sel_meta = select_topk_keys_plain(
+        pool,
+        k,
+        capacity=capacity,
+        quantum_bits=idx_bits + merge_levels,
+        shared_exponent=True,
+    )
+    return sel_keys, sel_meta, dmax
+
+
+def packed_lane_scan_select(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    *,
+    score_bound: float | torch.Tensor = 1.0,
+    batch_tile: int = DEFAULT_BATCH_TILE,
+    corpus_tile: int = DEFAULT_CORPUS_TILE,
+    idx_bits: int | None = None,
+    merge_levels: int = 0,
+    merge_keep: int = 2,
+    capacity: int | None = None,
+    bias_in_dot: bool = False,
+    true_num_items: int | None = None,
+    lane_shuffle: int = 0,
+    scales: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Packed sweep + lane-pair merge + threshold select in ONE kernel.
+
+    Returns (sel_keys (B, capacity) i32, sel_lanes (B, capacity) i32,
+    dmax (B,) i32): per row the top-`capacity` candidate keys of the
+    merged slot pool (rank order, not sorted; empty slots key 0, lane
+    0), their pool lane indices (decode with `unpack_positions`,
+    reserve_bits=merge_levels) and the discard-max with the merge
+    discards folded in. Callers finish with a top-k over `capacity`
+    lanes. Ties at the key quantum may resolve to either tied element.
+    Same `score_bound` / `bias_in_dot` / `scales` contract as
+    `packed_lane_scan`. A CPU tensor runs the plain version, a CUDA
+    tensor the kernel.
+    """
+    ct = min(corpus_tile, corpus.shape[0])
+    if idx_bits is None:
+        idx_bits = max((corpus.shape[0] // ct - 1).bit_length(), 1)
+    if idx_bits + merge_levels > 20:
+        msg = (
+            f"{idx_bits=} + reserve {merge_levels} leaves fewer than 3 "
+            "mantissa bits of score resolution"
+        )
+        raise ValueError(msg)
+    merge_levels = _clamp_merge_levels(ct, k, merge_levels, merge_keep)
+    pool_width = _pool_width(ct, merge_levels, merge_keep)
+    if capacity is None:
+        capacity = _round_up(k, 128)
+    if not 0 < k <= capacity:
+        msg = f"need 0 < {k=} <= {capacity=}"
+        raise ValueError(msg)
+    if capacity % 128 or pool_width % 128:
+        msg = f"{capacity=} / {pool_width=} must be multiples of 128"
+        raise ValueError(msg)
+    if capacity > pool_width:
+        msg = f"{capacity=} exceeds the merged pool width {pool_width}"
+        raise ValueError(msg)
+    fb = pool_width.bit_length()
+    if 2 * fb + 1 > 31:
+        msg = f"merged pool width {pool_width} too wide for meta routing"
+        raise ValueError(msg)
+    queries, scales, geometry = prepare_packed_scan(
+        queries,
+        corpus,
+        score_bound=score_bound,
+        batch_tile=batch_tile,
+        corpus_tile=corpus_tile,
+        idx_bits=idx_bits,
+        reserve_bits=merge_levels,
+        bias_in_dot=bias_in_dot,
+        true_num_items=true_num_items,
+        lane_shuffle=lane_shuffle,
+        scales=scales,
+    )
+    # the fused kernel always tracks discards and takes the merge depth
+    # where the scan takes its reserved bits
+    del geometry["track_discards"], geometry["reserve_bits"]
+    fused = (
+        packed_lane_scan_select_plain
+        if queries.device.type == "cpu"
+        else kernels.packed_scan_select
+    )
+    sel_keys, sel_meta, dmax = fused(
+        queries,
+        corpus,
+        scales,
+        k,
+        merge_levels=merge_levels,
+        merge_keep=merge_keep,
+        capacity=capacity,
+        **geometry,
+    )
+    # empty slots (meta 0) clamp to lane 0; their key 0 keeps them last
+    sel_lanes = torch.clamp((sel_meta & ((1 << fb) - 1)) - 1, min=0)
+    return sel_keys, sel_lanes, dmax
+
+
 def packed_certified_parts(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -440,11 +607,13 @@ def packed_certified_parts(
     """Packed scan + top-k: (top_keys (B, k) i32, positions (B, k) i32,
     dmax (B,) i32 or None with track_discards=False).
 
-    `selector`: "threshold" runs `select_topk_keys` over the merged pool,
-    "topk" a stable sort, "auto" the threshold select once the pool is at
-    least 4x `capacity` wide. "fused" (scan, merge and select in one
-    kernel) belongs to `_packed_scan_select_kernel`, which is not ported
-    yet.
+    `selector`: "fused" runs scan, merge and threshold select as ONE
+    kernel (`packed_lane_scan_select`; no key pool in device memory),
+    "threshold" the scan, then `select_topk_keys` over the merged pool,
+    "topk" a stable sort of the pool, "auto" the two-kernel threshold
+    path once the pool is at least 4x `capacity` wide (as the reference
+    routes it), else the sort. The fused kernel always tracks discards,
+    so with `track_discards=False` "fused" runs as "topk".
     """
     if merge_keep not in (2, 3):
         msg = f"merge_keep must be 2 or 3, got {merge_keep}"
@@ -454,19 +623,39 @@ def packed_certified_parts(
         raise ValueError(msg)
     if not track_discards and selector == "fused":
         selector = "topk"
-    if selector == "fused":
-        msg = (
-            "selector='fused' needs the fused scan+select kernel "
-            "(kernel 5, _packed_scan_select_kernel), not ported yet; "
-            "use 'auto' or 'threshold'"
-        )
-        raise NotImplementedError(msg)
     ct = min(corpus_tile, corpus.shape[0])
     num_tiles = corpus.shape[0] // ct
     if idx_bits is None:
         idx_bits = max((num_tiles - 1).bit_length(), 1)
     merge_levels = _clamp_merge_levels(ct, k, merge_levels, merge_keep)
     capacity = _round_up(k, 128)
+    decode = dict(
+        corpus_tile=ct,
+        idx_bits=idx_bits,
+        lane_shuffle=lane_shuffle,
+        reserve_bits=merge_levels,
+        merge_levels=merge_levels,
+    )
+    if selector == "fused":
+        sel_keys, sel_lanes, dmax = packed_lane_scan_select(
+            queries,
+            corpus,
+            k,
+            score_bound=score_bound,
+            batch_tile=batch_tile,
+            corpus_tile=corpus_tile,
+            idx_bits=idx_bits,
+            merge_levels=merge_levels,
+            merge_keep=merge_keep,
+            capacity=capacity,
+            bias_in_dot=bias_in_dot,
+            true_num_items=true_num_items,
+            lane_shuffle=lane_shuffle,
+            scales=scales,
+        )
+        top_keys, sel = topk_stable(sel_keys, k)
+        top_lanes = torch.gather(sel_lanes, 1, sel)
+        return top_keys, unpack_positions(top_keys, top_lanes, **decode), dmax
     keys, dmax = packed_lane_scan(
         queries,
         corpus,
@@ -481,18 +670,7 @@ def packed_certified_parts(
         scales=scales,
         track_discards=track_discards,
     )
-    key1, key2 = keys[:, :ct], keys[:, ct:]
-    if merge_levels and merge_keep == 3:
-        key1, key2, key3, disc = merge_lane_pairs3(key1, key2, 0)
-        if dmax is not None:
-            dmax = torch.maximum(dmax, disc)
-        pool = torch.cat([key1, key2, key3], dim=-1)
-    else:
-        for level in range(merge_levels):
-            key1, key2, disc = merge_lane_pairs(key1, key2, level)
-            if dmax is not None:
-                dmax = torch.maximum(dmax, disc)
-        pool = torch.cat([key1, key2], dim=-1)
+    pool, dmax = _merge_slots(keys, dmax, merge_levels, merge_keep)
     use_threshold = selector == "threshold" or (
         selector == "auto" and pool.shape[1] >= 4 * capacity
     )
@@ -506,16 +684,7 @@ def packed_certified_parts(
         )
     else:
         top_keys, top_lanes = topk_stable(pool, k)
-    positions = unpack_positions(
-        top_keys,
-        top_lanes,
-        corpus_tile=ct,
-        idx_bits=idx_bits,
-        lane_shuffle=lane_shuffle,
-        reserve_bits=merge_levels,
-        merge_levels=merge_levels,
-    )
-    return top_keys, positions, dmax
+    return top_keys, unpack_positions(top_keys, top_lanes, **decode), dmax
 
 
 def decode_scores(
@@ -641,7 +810,7 @@ def packed_topk_excluding(
     slack = 0 if exclude_positions is None else exclude_positions.shape[1]
     ct = min(corpus_tile, corpus.shape[0])
     merge_levels = _clamp_merge_levels(ct, k + slack, merge_levels, merge_keep)
-    pool = (merge_keep if merge_levels else 2) * (ct >> merge_levels)
+    pool = _pool_width(ct, merge_levels, merge_keep)
     if slack and k + slack > pool and corpus.shape[0] > pool:
         msg = (
             f"exclusion width {slack} + {k=} exceeds the packed candidate "
