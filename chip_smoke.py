@@ -10,8 +10,11 @@ printing no result, when there is no card or any phase fails. Phases:
 
 1. build the kernels;
 2. the packed scan kernel against its plain PyTorch version: bit for bit
-   on inputs whose dot products are exact in f32, and within one key
-   quantum on random unit vectors at the retrieval geometry;
+   on inputs whose dot products are exact in f32 (also at the serving
+   tower's width, at small batches whose corpus tiles the wrapper splits
+   over blocks, and with a forced split), within one key quantum on
+   random unit vectors at the retrieval geometry, and the same from run
+   to run and from split to split;
 3. the threshold-select kernel against its plain version on real pools;
 4. the serving path: a synthesized artifact (text tower at the trained
    widths, 2^20 items), `RecService` over HTTP on localhost, every answer
@@ -148,11 +151,13 @@ def exact_inputs(gen, batch, num_items, dim, int8=False):
     return q, c, scales, bound
 
 
-def exact_tensors(gen, dev, int8=False, f32=False, bias=False):
-    """`exact_inputs` at B=500, N=65536, D=64 on the card, in the dtypes
-    of one kernel instantiation (bf16/bf16, bf16/int8 or f32/f32), with
-    the 1.5 column appended for `bias_in_dot`."""
-    q, c, scales, bound = exact_inputs(gen, 500, 1 << 16, 64, int8=int8)
+def exact_tensors(gen, dev, int8=False, f32=False, bias=False, batch=500,
+                  dim=64):
+    """`exact_inputs` at B=500, N=65536, D=64 (unless told otherwise) on
+    the card, in the dtypes of one kernel instantiation (bf16/bf16,
+    bf16/int8 or f32/f32), with the 1.5 column appended for
+    `bias_in_dot`."""
+    q, c, scales, bound = exact_inputs(gen, batch, 1 << 16, dim, int8=int8)
     if bias:
         c = torch.cat([c, torch.full((len(c), 1), 1.5)], dim=1)
     qdt = torch.float32 if f32 else torch.bfloat16
@@ -189,19 +194,34 @@ def phase_scan(dev) -> dict:
         ("int8_scales_shuffle5", dict(int8=True, lane_shuffle=5)),
         ("bias_in_dot", dict(bias_in_dot=True)),
         ("f32_inputs", dict(f32=True, lane_shuffle=1)),
+        # the serving tower's width
+        ("dim32_shuffle1", dict(dim=32, lane_shuffle=1)),
+        ("dim32_int8_scales", dict(dim=32, int8=True)),
+        # small batches: the wrapper splits the corpus tiles over blocks
+        ("batch64_shuffle3_padding",
+         dict(batch=64, lane_shuffle=3, reserve_bits=1, true_num_items=60000)),
+        ("batch8", dict(batch=8)),
+        ("batch8_int8_scales", dict(batch=8, int8=True, lane_shuffle=5)),
+        ("batch8_f32_inputs", dict(batch=8, f32=True)),
+        ("forced_splits5_shuffle1", dict(splits=5, lane_shuffle=1)),
+        ("forced_splits32_bias_in_dot", dict(splits=32, bias_in_dot=True)),
     ]
     for name, opts in cases:
         opts = dict(opts)
         int8 = opts.pop("int8", False)
         f32 = opts.pop("f32", False)
+        batch = opts.pop("batch", 500)
+        splits = opts.pop("splits", None)
         qd, cd, sd, bound = exact_tensors(
-            gen, dev, int8=int8, f32=f32, bias=opts.get("bias_in_dot", False)
+            gen, dev, int8=int8, f32=f32, bias=opts.get("bias_in_dot", False),
+            batch=batch, dim=opts.pop("dim", 64),
         )
         q_s, s_s, geom = topk.prepare_packed_scan(
-            qd, cd, score_bound=bound, batch_tile=500, corpus_tile=2048,
+            qd, cd, score_bound=bound, batch_tile=batch, corpus_tile=2048,
             scales=sd, **opts,
         )
-        got = kernels.packed_scan(q_s, cd, s_s, **geom)
+        got = kernels.packed_scan(q_s, cd, s_s, splits=splits, **geom)
+        chosen = splits or kernels.packed_scan_splits(q_s, cd, **geom)
         want = topk.packed_lane_scan_plain(q_s, cd, s_s, **geom)
         torch.cuda.synchronize()
         check(torch.equal(got[0], want[0]), f"scan keys differ ({name})")
@@ -209,8 +229,11 @@ def phase_scan(dev) -> dict:
             check(torch.equal(got[1], want[1]), f"scan dmax differs ({name})")
         else:
             check(got[1] is None, f"dmax returned untracked ({name})")
+        check(chosen > 1 or batch == 500,
+              f"unexpected corpus splits {chosen} ({name})")
         print(f"scan exact case {name}: keys and dmax bit-identical "
-              f"(B=500, N=65536, D={cd.shape[1]})")
+              f"(B={batch}, N=65536, D={cd.shape[1]}, corpus splits {chosen}"
+              f"{' forced' if splits else ''})")
 
     # random unit vectors at the retrieval geometry
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -245,6 +268,27 @@ def phase_scan(dev) -> dict:
           f"{err:.3e} (dmax {err_dmax:.3e}), tolerance {tol:.3e} "
           "(one key quantum + f32 reassociation)")
     check(err <= tol and err_dmax <= tol, "scan random-input error too large")
+    check(kernels.packed_scan_splits(q_s, c, **geom) == 1,
+          "the full batch was split over blocks")
+
+    # with the corpus split over blocks, the partial top-2s are merged by
+    # whichever block arrives last: integer max and min only, so two runs
+    # agree bit for bit, and with the unsplit sweep of the same rows
+    q_rows = q_s[:256].contiguous()
+    run1 = kernels.packed_scan(q_rows, c, None, **geom)
+    chosen = kernels.packed_scan_splits(q_rows, c, **geom)
+    run2 = kernels.packed_scan(q_rows, c, None, **geom)
+    forced = kernels.packed_scan(q_rows, c, None, splits=37, **geom)
+    torch.cuda.synchronize()
+    check(chosen > 1, "a 256-row sweep was not split over blocks")
+    for what, other in (("a second run", run2), ("37 forced splits", forced),
+                        ("the unsplit full batch",
+                         (got_keys[:256], got_dmax[:256]))):
+        check(torch.equal(run1[0], other[0]) and torch.equal(run1[1], other[1]),
+              f"split sweep differs from {what}")
+    print(f"scan random B=256 with the corpus split {chosen} ways over "
+          "blocks: keys and dmax torch.equal run to run, to 37 forced "
+          "splits and to the same rows of the unsplit B=4096 sweep")
     return {"max_abs_err": max(err, err_dmax), "keys": got_keys,
             "idx_bits": geom["idx_bits"], "queries": q, "corpus": c}
 
@@ -809,9 +853,20 @@ def phase_fused_select(dev, q, c) -> dict:
               lane_shuffle=1)),
         ("keep3_bias_in_dot",
          dict(merge_levels=1, merge_keep=3, bias_in_dot=True)),
+        # small batches: the corpus tiles split over blocks, merged in
+        # the tail of the same launch
+        ("keep3_batch64_shuffle3",
+         dict(merge_levels=1, merge_keep=3, batch=64, lane_shuffle=3)),
+        ("keep3_batch8_int8_scales",
+         dict(merge_levels=1, merge_keep=3, batch=8, int8=True)),
+        ("keep2_level1_batch8", dict(merge_levels=1, batch=8)),
+        ("keep3_forced_splits5_padding",
+         dict(merge_levels=1, merge_keep=3, splits=5, true_num_items=60000)),
     ]
 
     def both(qd, cd, sd, bound, opts):
+        opts = dict(opts)
+        splits = opts.pop("splits", None)
         levels = opts["merge_levels"]
         q_s, s_s, geom = topk.prepare_packed_scan(
             qd, cd, score_bound=bound, batch_tile=qd.shape[0],
@@ -823,7 +878,8 @@ def phase_fused_select(dev, q, c) -> dict:
         kw = dict(merge_levels=levels, merge_keep=opts.get("merge_keep", 2),
                   capacity=128, **geom)
         before = kernels.launch_counts()
-        got = kernels.packed_scan_select(q_s, cd, s_s, BENCH_K, **kw)
+        got = kernels.packed_scan_select(q_s, cd, s_s, BENCH_K, splits=splits,
+                                         **kw)
         after = kernels.launch_counts()
         check(after["packed_scan_select"] == before["packed_scan_select"] + 1
               and after["packed_scan"] == before["packed_scan"]
@@ -831,25 +887,33 @@ def phase_fused_select(dev, q, c) -> dict:
               "the fused kernel is not exactly one launch")
         want = topk.packed_lane_scan_select_plain(q_s, cd, s_s, BENCH_K, **kw)
         torch.cuda.synchronize()
-        return got, want, q_s, geom
+        return got, want, q_s, geom, kw
 
     for name, opts in cases:
         opts = dict(opts)
+        batch = opts.pop("batch", 500)
         qd, cd, sd, bound = exact_tensors(
             gen, dev, int8=opts.pop("int8", False),
-            bias=opts.get("bias_in_dot", False),
+            bias=opts.get("bias_in_dot", False), batch=batch,
         )
-        got, want, _, _ = both(qd, cd, sd, bound, opts)
+        got, want, q_s, _, kw = both(qd, cd, sd, bound, opts)
+        chosen = opts.get("splits") or kernels.packed_scan_select_splits(
+            q_s, cd, BENCH_K, **kw)
         for part, g, w in zip(("keys", "lanes (meta)", "dmax"), got, want,
                               strict=True):
             check(torch.equal(g, w), f"fused select {part} differ ({name})")
+        check(chosen > 1 or batch == 500,
+              f"unexpected corpus splits {chosen} ({name})")
         print(f"fused select exact case {name}: keys, lanes and dmax "
-              f"bit-identical (B=500, N=65536, D={cd.shape[1]}, k={BENCH_K})")
+              f"bit-identical (B={batch}, N=65536, D={cd.shape[1]}, "
+              f"k={BENCH_K}, corpus splits {chosen})")
 
     # random unit vectors at the retrieval geometry, the index's own
     # configuration (keep-3, one merge level)
     opts = dict(merge_levels=1, merge_keep=3)
-    got, want, q_s, geom = both(q, c, None, 1.05, opts)
+    got, want, q_s, geom, kw = both(q, c, None, 1.05, opts)
+    check(kernels.packed_scan_select_splits(q_s, c, BENCH_K, **kw) == 1,
+          "the fused kernel split the full batch over blocks")
     qbits = geom["idx_bits"] + 1
     decode = dict(idx_bits=geom["idx_bits"], reserve_bits=1, score_bound=1.05)
 
@@ -877,6 +941,28 @@ def phase_fused_select(dev, q, c) -> dict:
           f"reassociation); raw outputs identical to plain: {raw_same}; "
           "identical to packed_scan + merge + threshold_select: True")
     check(max(err, err_d) <= tol, "fused select random-input error")
+
+    # with the corpus split over blocks the fused kernel counts arrivals
+    # twice and merges the splits in place before its tail: two runs, and
+    # a forced split, equal the same rows of the unsplit launch
+    q_rows = q_s[:256].contiguous()
+    chosen = kernels.packed_scan_select_splits(q_rows, c, BENCH_K, **kw)
+    check(chosen > 1, "a 256-row fused sweep was not split over blocks")
+    runs = {
+        "the wrapper's splits": kernels.packed_scan_select(
+            q_rows, c, None, BENCH_K, **kw),
+        "a second run": kernels.packed_scan_select(
+            q_rows, c, None, BENCH_K, **kw),
+        "37 forced splits": kernels.packed_scan_select(
+            q_rows, c, None, BENCH_K, splits=37, **kw),
+    }
+    torch.cuda.synchronize()
+    for what, run in runs.items():
+        check(all(torch.equal(r, g[:256]) for r, g in zip(run, got, strict=True)),
+              f"split fused sweep ({what}) differs from the unsplit launch")
+    print(f"fused select random B=256 with the corpus split {chosen} ways "
+          "over blocks: keys, lanes and dmax torch.equal run to run, to 37 "
+          "forced splits and to the same rows of the unsplit B=4096 launch")
     return {"max_abs_err": max(err, err_d)}
 
 
@@ -1098,16 +1184,45 @@ def phase_timings(guaranteed: dict, select: dict, certified: dict,
           f"plain {scan_plain_ms:.3f} ms; bound {scan_bound:.3f} ms "
           f"(bytes {bytes_ms:.3f}, bf16 dot on tensor cores {dot_ms:.3f}, "
           f"int32 contest {int_ms:.3f}) [{card}]")
-    # the guaranteed path's retry sweeps run at 256 and 64 rows
-    retry = {}
-    for rows in (256, 64):
+    # the guaranteed path's retry sweeps run at 256 and 64 rows, a
+    # served micro-batch at 8
+    retry, split = {}, {}
+    for rows in (256, 64, 8):
         q_rows = q_s[:rows].contiguous()
         retry[rows] = cuda_ms(
             lambda q_rows=q_rows: kernels.packed_scan(q_rows, corpus, None, **geom)
         )
+        split[rows] = kernels.packed_scan_splits(q_rows, corpus, **geom)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"packed_scan at the retry widths: B=256 {retry[256]:.3f} ms, B=64 "
-          f"{retry[64]:.3f} ms ({sms} SMs) [{card}]")
+    print(f"packed_scan at the retry and serving widths: B=256 "
+          f"{retry[256]:.3f} ms, B=64 {retry[64]:.3f} ms, B=8 {retry[8]:.3f} "
+          f"ms (corpus splits {split[256]}, {split[64]}, {split[8]}; {sms} "
+          f"SMs) [{card}]")
+
+    # the two sweeps beside the asynchronous ring, at a retry width: plain
+    # loads (the bias column makes D odd) and the f32 fmaf chain, each
+    # with the splits that its own blocks an SM give it
+    q64 = guaranteed["queries"][:64]
+    c_bias = torch.cat([corpus, torch.full_like(corpus[:, :1], 1.5)], dim=1)
+    others = {}
+    for name, qo, co, extra in (
+        ("bias_in_dot D=65", q64, c_bias, dict(bias_in_dot=True)),
+        ("f32 x f32", q64.float(), corpus.float(), {}),
+    ):
+        qo_s, _, geom_o = topk.prepare_packed_scan(
+            qo, co, score_bound=1.05, batch_tile=64, corpus_tile=2048,
+            reserve_bits=1, **extra,
+        )
+        ms = cuda_ms(
+            lambda qo_s=qo_s, co=co, geom_o=geom_o: kernels.packed_scan(
+                qo_s, co, None, **geom_o),
+            iters=5,
+        )
+        others[name] = (ms, kernels.packed_scan_splits(qo_s, co, **geom_o))
+    del c_bias, co
+    print("packed_scan at B=64 through its other sweeps: " + ", ".join(
+        f"{name} {ms:.3f} ms (corpus splits {s})"
+        for name, (ms, s) in others.items()) + f" [{card}]")
 
     pool = select["pool"]
     opts = dict(capacity=128, quantum_bits=select["qbits"],
@@ -1204,6 +1319,13 @@ def phase_timings(guaranteed: dict, select: dict, certified: dict,
         return kernels.threshold_select(merged, BENCH_K, **opts), dmax
 
     two_ms = cuda_ms(two_kernels, iters=5)
+    fused_retry = {}
+    for rows in (256, 64):
+        q_rows = q_s[:rows].contiguous()
+        fused_retry[rows] = cuda_ms(
+            lambda q_rows=q_rows: kernels.packed_scan_select(
+                q_rows, corpus, None, BENCH_K, **fused_kw)
+        )
     fused_bytes_ms = (b * d * 2 + n * d * 2 + 2 * b * 128 * 4 + b * 4
                       ) / HBM_BYTES_PER_S * 1e3
     # the contest, 8 per lane pair for the keep-3 merge, then the select
@@ -1212,7 +1334,8 @@ def phase_timings(guaranteed: dict, select: dict, certified: dict,
     fused_bound = bound_of(fused_bytes_ms, dot_ms, fused_ops_ms)
     print(f"packed_scan_select at B={b} N={n} D={d} ct={ct} keep-3 k={BENCH_K}"
           f": kernel {fused_ms:.3f} ms, plain {fused_plain_ms:.3f} ms, "
-          f"packed_scan + merge + threshold_select {two_ms:.3f} ms; bound "
+          f"packed_scan + merge + threshold_select {two_ms:.3f} ms; at B=256 "
+          f"{fused_retry[256]:.3f} ms, B=64 {fused_retry[64]:.3f} ms; bound "
           f"{fused_bound['bound_ms']:.3f} ms (bytes {fused_bytes_ms:.3f}, "
           f"bf16 dot on tensor cores {dot_ms:.3f}, int32 contest + merge + "
           f"select {fused_ops_ms:.3f}) [{card}]")
@@ -1246,9 +1369,13 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path = kernels.build(verbose=True)
     build_s = time.perf_counter() - t0
+    spills = 0
     for line in kernels.last_build_log.splitlines():
         if "registers" in line or "spill" in line or "==" in line:
             print(f"ptxas: {line.strip()}")
+        if "spill stores" in line and "0 bytes spill stores" not in line:
+            spills += 1
+    check(spills == 0, f"ptxas reports register spills in {spills} kernels")
     kernels.load()
     print(f"build: {build_s:.2f} s -> {lib_path.relative_to(pathlib.Path.cwd()) if lib_path.is_relative_to(pathlib.Path.cwd()) else lib_path}")
 

@@ -169,6 +169,10 @@ def test_kernel_sources_present():
         stem = name.removesuffix(".cu")
         assert callable(getattr(kernels, stem)) and stem in kernels.LAUNCHES
         assert f"xfmr_{stem}(" in source
+    assert set(kernels.HEADERS) == {
+        "scan_common.cuh", "mma_sweep.cuh", "packed_sweep.cuh",
+        "select_common.cuh",
+    }
     for name in kernels.HEADERS:
         assert (kernels.CSRC_DIR / name).exists()
     # every header a source includes is hashed into the build's name
@@ -186,10 +190,73 @@ def test_kernel_sources_present():
     "source", ["lane_max_scan.cu", "count_at_least.cu", "packed_scan_select.cu"]
 )
 def test_scan_kernels_do_their_own_dot(source):
-    """The dot of each scan kernel is its own fmaf chain (the shared
-    `tile_dot`), not a library call."""
+    """The dot of each scan kernel is the repo's own: the fmaf chain of
+    the shared `tile_dot` (kernels 3 and 4, and the f32 packed sweep) or
+    the tensor-core sweep of packed_sweep.cuh, not a library call."""
     text = (kernels.CSRC_DIR / source).read_text()
-    assert "tile_dot<" in text or "packed_sweep<" in text
+    assert "tile_dot<" in text or "with_sweep(" in text
     for banned in ("cublas", "cutlass", "#include <torch", "#include <aten"):
         assert banned not in text.lower()
     assert "fmaf(" in (kernels.CSRC_DIR / "scan_common.cuh").read_text()
+    sweep = (kernels.CSRC_DIR / "packed_sweep.cuh").read_text()
+    assert "tile_dot<" in sweep and "f(FmaSweep{})" in sweep
+
+
+BANNED_IN_SWEEP = ("cublas", "#include <torch", "#include <aten",
+                   "cutlass/gemm/device")
+
+
+@pytest.mark.parametrize(
+    "source",
+    ["mma_sweep.cuh", "packed_sweep.cuh", "packed_scan.cu",
+     "packed_scan_select.cu"],
+)
+def test_packed_sweep_multiplies_on_tensor_cores_itself(source):
+    """Kernels 1 and 5 form their bf16 and int8 scores with `wgmma`
+    written out in the repo's own header, behind `cp.async` copies, and
+    reach it through `MmaSweep`; no library GEMM anywhere on the way."""
+    text = (kernels.CSRC_DIR / source).read_text()
+    for banned in BANNED_IN_SWEEP:
+        assert banned not in text.lower()
+    if source == "mma_sweep.cuh":
+        assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in text
+        assert "cp.async.cg.shared.global" in text
+        assert "fence.proxy.async" in text
+    elif source == "packed_sweep.cuh":
+        assert '#include "mma_sweep.cuh"' in text
+        assert "mma_tile(" in text and "ring.acquire(" in text
+        # one sweep per dtype pair, chosen in one place
+        for pair in ("f(MmaSweep<__nv_bfloat16, true>{})",
+                     "f(MmaSweep<int8_t, true>{})", "f(FmaSweep{})"):
+            assert text.count(pair) == 1
+    else:
+        # no old sweep kept beside the new one, no sweep chosen here
+        assert text.count("with_sweep(") == 2
+        assert "packed_sweep<" not in text and "MmaSweep<" not in text
+
+
+def test_split_plan_is_a_pure_function():
+    """The number of corpus splits depends on the shapes and the SM count
+    alone, never on a build or a launch having failed."""
+    source = (REPO / "xfmr_rec_torch/ops/kernels.py").read_text()
+    tree = ast.parse(source)
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "sweep_splits")
+    names = {n.id for stmt in fn.body for n in ast.walk(stmt)
+             if isinstance(n, ast.Name)}
+    assert names <= {"batch", "num_tiles", "lane_chunks", "sm_count", "blocks",
+                     "max", "min", "block_rows", "blocks_per_sm"}
+    assert kernels.sweep_splits(4096, 512, 32, 132) == 1
+    assert kernels.sweep_splits(64, 512, 32, 132) == 16
+    # the f32 sweep: 128 lanes a block, one block an SM
+    assert kernels.sweep_splits(64, 512, 16, 132, 64, 1) == 8
+
+
+def test_sweep_shape_is_fixed_in_the_source():
+    """One shape of the tensor-core sweep is built: no compile-time knob,
+    no way to rebuild the library with other flags."""
+    header = (kernels.CSRC_DIR / "mma_sweep.cuh").read_text()
+    assert "#ifndef" not in header and "#define XFMR_MMA" not in header
+    assert "m64n128k16" not in header
+    assert not hasattr(kernels, "use_variant")
+    assert not (REPO / "xfmr_rec_torch/tools").exists()

@@ -83,6 +83,74 @@ def test_packed_scan_matches_plain(card, opts):
         torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize(
+    "opts",
+    [
+        dict(),
+        dict(lane_shuffle=3, reserve_bits=1, true_num_items=1500),
+        dict(int8=True, lane_shuffle=1),
+        dict(f32=True),
+        dict(bias_in_dot=True),
+        # the serving tower's width, tiles narrower than a block's lanes
+        dict(dim=32, corpus_tile=64, splits_scale=8),
+        dict(dim=32, int8=True),
+    ],
+)
+def test_packed_scan_split_over_blocks_matches_plain(card, opts, splits):
+    """The corpus tiles split over blocks (forced, and whatever the
+    wrapper chooses for this small batch) give the unsplit plain keys."""
+    opts = dict(opts)
+    int8 = opts.pop("int8", False)
+    f32 = opts.pop("f32", False)
+    dim = opts.pop("dim", 64)
+    splits *= opts.pop("splits_scale", 1)
+    opts.setdefault("corpus_tile", 512)
+    q, c, scales, bound = exact_inputs(6, 70, 2048, dim, int8=int8)
+    if opts.get("bias_in_dot"):
+        c = np.concatenate([c, np.full((len(c), 1), 1.5, c.dtype)], axis=1)
+    dtype = torch.float32 if f32 else torch.bfloat16
+    tq = torch.from_numpy(q).to(card, dtype)
+    tc = torch.from_numpy(c).to(card)
+    tc = tc if int8 else tc.to(dtype)
+    ts = None if scales is None else torch.from_numpy(scales).to(card)
+    q_s, s_s, geom = topk.prepare_packed_scan(
+        tq, tc, score_bound=bound, batch_tile=70, scales=ts, **opts
+    )
+    want = topk.packed_lane_scan_plain(q_s.cpu(), tc.cpu(), on_cpu(s_s), **geom)
+    for forced in (splits, None):
+        got = kernels.packed_scan(q_s, tc, s_s, splits=forced, **geom)
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+        torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+    # a small batch over several tiles is split without being asked
+    assert kernels.packed_scan_splits(q_s, tc, **geom) > 1
+
+
+def test_packed_scan_splits_are_bounded(card):
+    tq = torch.zeros((8, 64), dtype=torch.bfloat16, device=card)
+    tc = torch.zeros((1024, 64), dtype=torch.bfloat16, device=card)
+    for bad in (0, 5):
+        with pytest.raises(ValueError, match="splits"):
+            kernels.packed_scan(tq, tc, None, corpus_tile=256, idx_bits=2,
+                                splits=bad)
+
+
+def test_split_sweep_is_the_same_run_to_run(card):
+    """Random inputs, the wrapper's own splits: the merge is integer max
+    and min, so whichever block arrives last the outputs are equal."""
+    g = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn(100, 64, device=card, generator=g).bfloat16()
+    c = torch.randn(1 << 16, 64, device=card, generator=g).bfloat16()
+    q_s, _, geom = topk.prepare_packed_scan(
+        q, c, score_bound=64.0, batch_tile=100, corpus_tile=2048
+    )
+    first = kernels.packed_scan(q_s, c, None, **geom)
+    assert kernels.packed_scan_splits(q_s, c, **geom) > 1
+    for splits in (None, None, 1, 9):
+        again = kernels.packed_scan(q_s, c, None, splits=splits, **geom)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
 @pytest.mark.parametrize("width", [384, 3072, 4096])
 def test_threshold_select_matches_plain(card, width):
     rng = np.random.default_rng(width)
@@ -185,12 +253,17 @@ def test_count_certifies_what_the_scan_found(card):
         dict(merge_levels=1, merge_keep=3, true_num_items=1500),
         dict(merge_levels=1, merge_keep=3, int8=True),
         dict(merge_levels=1, merge_keep=3, bias_in_dot=True),
+        # the serving tower's width
+        dict(merge_levels=1, merge_keep=3, dim=32),
+        dict(merge_levels=1, dim=32, int8=True, lane_shuffle=1),
     ],
 )
 def test_packed_scan_select_matches_plain(card, opts):
     opts = dict(opts)
     int8 = opts.pop("int8", False)
-    tq, tc, ts, bound = scan_tensors(card, 5, 70, 2048, 64, int8=int8)
+    tq, tc, ts, bound = scan_tensors(
+        card, 5, 70, 2048, opts.pop("dim", 64), int8=int8
+    )
     if opts.get("bias_in_dot"):
         tc = torch.cat([tc, torch.full_like(tc[:, :1], 1.5)], dim=1)
     kw = dict(score_bound=bound, batch_tile=70, corpus_tile=512, **opts)
@@ -204,5 +277,44 @@ def test_packed_scan_select_matches_plain(card, opts):
     want = topk.packed_lane_scan_select(
         tq.cpu(), tc.cpu(), 100, scales=on_cpu(ts), **kw
     )
+    for g, w in zip(got, want, strict=True):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize(
+    "opts",
+    [
+        dict(merge_levels=1, merge_keep=3),
+        dict(merge_levels=2, lane_shuffle=3, true_num_items=1500),
+        dict(merge_levels=1, merge_keep=3, int8=True),
+    ],
+)
+def test_packed_scan_select_split_over_blocks_matches_plain(card, opts, splits):
+    """The fused kernel with its corpus tiles split over blocks: the tail
+    merges the splits before the lane pairs, still in one launch."""
+    opts = dict(opts)
+    levels = opts.pop("merge_levels")
+    keep = opts.pop("merge_keep", 2)
+    tq, tc, ts, bound = scan_tensors(
+        card, 8, 70, 2048, 64, int8=opts.pop("int8", False)
+    )
+    q_s, s_s, geom = topk.prepare_packed_scan(
+        tq, tc, score_bound=bound, batch_tile=70, corpus_tile=512,
+        reserve_bits=levels, scales=ts, **opts,
+    )
+    del geom["track_discards"], geom["reserve_bits"]
+    kw = dict(merge_levels=levels, merge_keep=keep, capacity=128, **geom)
+    want = topk.packed_lane_scan_select_plain(
+        q_s.cpu(), tc.cpu(), on_cpu(s_s), 100, **kw
+    )
+    before = kernels.launch_counts()["packed_scan_select"]
+    got = kernels.packed_scan_select(q_s, tc, s_s, 100, splits=splits, **kw)
+    assert kernels.launch_counts()["packed_scan_select"] == before + 1
+    # left alone, the wrapper splits this small batch, and agrees
+    assert kernels.packed_scan_select_splits(q_s, tc, 100, **kw) > 1
+    chosen = kernels.packed_scan_select(q_s, tc, s_s, 100, **kw)
+    for g, c in zip(got, chosen, strict=True):
+        assert torch.equal(g, c)
     for g, w in zip(got, want, strict=True):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)

@@ -19,12 +19,14 @@ versions themselves.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -37,7 +39,12 @@ SOURCES = (
     "count_at_least.cu",
     "packed_scan_select.cu",
 )
-HEADERS = ("scan_common.cuh", "packed_sweep.cuh", "select_common.cuh")
+HEADERS = (
+    "scan_common.cuh",
+    "mma_sweep.cuh",
+    "packed_sweep.cuh",
+    "select_common.cuh",
+)
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -148,13 +155,19 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             lib.xfmr_packed_scan.argtypes = [
                 _VOID, _VOID, _VOID, _VOID, _VOID,  # q, corpus, scales, keys, dmax
+                _VOID, _VOID,  # work, arrivals
                 _INT, _INT, _INT, _INT,  # batch, dim, num_tiles, corpus_tile
                 _INT, _INT, _INT, _INT,  # true_n, shuffle, low_mask, reserve
-                _INT, _INT,  # add_bias, track_discards
+                _INT, _INT, _INT,  # add_bias, track_discards, splits
                 _INT, _INT,  # q_kind, corpus_kind
                 _VOID,  # stream
             ]
             lib.xfmr_packed_scan.restype = _INT
+            lib.xfmr_packed_scan_shape.argtypes = [
+                _INT, _INT, _INT, _INT,  # aligned, dim, q_kind, corpus_kind
+                _VOID,  # shape
+            ]
+            lib.xfmr_packed_scan_shape.restype = _INT
             lib.xfmr_threshold_select.argtypes = [
                 _VOID, _VOID, _VOID,  # pool, keys, meta
                 _INT, _INT, _INT, _INT,  # batch, width, k, capacity
@@ -188,10 +201,18 @@ def load() -> ctypes.CDLL:
                 _INT,  # add_bias
                 _INT, _INT, _INT,  # k, capacity, quantum_bits
                 _INT, _INT, _INT,  # merge_levels, keep3, pool_width
+                _INT,  # splits
                 _INT, _INT,  # q_kind, corpus_kind
                 _VOID,  # stream
             ]
             lib.xfmr_packed_scan_select.restype = _INT
+            lib.xfmr_packed_scan_select_shape.argtypes = [
+                _INT, _INT, _INT, _INT,  # aligned, dim, corpus_tile, capacity
+                _INT, _INT, _INT,  # merge_levels, keep3, pool_width
+                _INT, _INT,  # q_kind, corpus_kind
+                _VOID,  # shape
+            ]
+            lib.xfmr_packed_scan_select_shape.restype = _INT
             _lib = lib
     return _lib
 
@@ -260,6 +281,94 @@ def _check_scan(
     return batch, dim, num_items // corpus_tile
 
 
+def sweep_splits(
+    batch: int,
+    num_tiles: int,
+    lane_chunks: int,
+    sm_count: int,
+    block_rows: int = 64,
+    blocks_per_sm: int = 4,
+) -> int:
+    """How many contiguous ranges the corpus tiles are split into, each
+    swept by blocks of its own (the third grid dimension).
+
+    Row tiles x lane chunks blocks fill the card at a large batch, and
+    the answer is 1. At a small batch the tiles are split so that the
+    blocks fill the SMs once, all resident together (`blocks_per_sm` at a
+    time on each), and never more ways than there are tiles. The defaults
+    are the shape of the bf16 sweep at D=64; the wrappers ask the library
+    for the shape of the launch at hand.
+    """
+    blocks = max(1, -(-batch // block_rows) * lane_chunks)
+    return max(1, min(num_tiles, blocks_per_sm * sm_count // blocks))
+
+
+class _SweepPlan(NamedTuple):
+    splits: int
+    row_tiles: int
+    lane_chunks: int
+
+
+@functools.lru_cache(maxsize=None)
+def _block_shape(
+    shape_fn: str, device: int, *args: int
+) -> tuple[int, int, int, int]:
+    """(rows of a block, lanes of a block, blocks an SM holds at a time,
+    SMs) of one packed-sweep kernel on one card, from the kernel's shape
+    query in the library: fixed for given arguments, so asked once."""
+    shape = (_INT * 3)()
+    with torch.cuda.device(device):
+        err = getattr(load(), shape_fn)(*args, shape)
+    _raise_on(err, shape_fn)
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    return (*shape, sm_count)
+
+
+def _plan_sweep(
+    shape_fn: str,
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    corpus_tile: int,
+    splits: int | None,
+    *select: int,
+) -> _SweepPlan:
+    """The grid of one launch of a packed-sweep kernel: the block shape
+    for these operands (`select` holds the fused kernel's further
+    arguments), and the caller's splits or `sweep_splits` for this card."""
+    batch, dim = queries.shape
+    num_tiles = corpus.shape[0] // corpus_tile
+    block_rows, block_lanes, blocks_per_sm, sm_count = _block_shape(
+        shape_fn,
+        corpus.device.index,
+        int(corpus.data_ptr() % 16 == 0),
+        dim,
+        *select,
+        _Q_KINDS[queries.dtype],
+        _CORPUS_KINDS[corpus.dtype],
+    )
+    row_tiles = -(-batch // block_rows)
+    lane_chunks = -(-corpus_tile // block_lanes)
+    if splits is None:
+        splits = sweep_splits(
+            batch, num_tiles, lane_chunks, sm_count, block_rows, blocks_per_sm
+        )
+    if not 1 <= splits <= num_tiles:
+        msg = f"need 1 <= {splits=} <= {num_tiles=}"
+        raise ValueError(msg)
+    return _SweepPlan(splits, row_tiles, lane_chunks)
+
+
+def packed_scan_splits(
+    queries: torch.Tensor, corpus: torch.Tensor, *, corpus_tile: int, **_ignored
+) -> int:
+    """The corpus splits that `packed_scan` chooses for these operands on
+    this card (its other arguments are accepted and ignored)."""
+    _check_scan("packed_scan", queries, corpus, None, corpus_tile)
+    return _plan_sweep(
+        "xfmr_packed_scan_shape", queries, corpus, corpus_tile, None
+    ).splits
+
+
 def packed_scan(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -272,9 +381,12 @@ def packed_scan(
     true_num_items: int | None = None,
     lane_shuffle: int = 0,
     track_discards: bool = True,
+    splits: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch the packed scan kernel (same arguments and results as
-    `ops.topk.packed_lane_scan_plain`)."""
+    `ops.topk.packed_lane_scan_plain`). `splits` overrides how many ways
+    the corpus tiles are split over blocks (default: `sweep_splits`); the
+    result does not depend on it."""
     batch, dim, num_tiles = _check_scan(
         "packed_scan", queries, corpus, scales, corpus_tile
     )
@@ -285,6 +397,23 @@ def packed_scan(
     if batch == 0:
         return keys, dmax if track_discards else None
     lib = load()
+    plan = _plan_sweep(
+        "xfmr_packed_scan_shape", queries, corpus, corpus_tile, splits
+    )
+    work = arrivals = None
+    if plan.splits > 1:
+        # partial slots of every split, and one arrival counter per (row
+        # tile, lane chunk)
+        work = torch.empty(
+            (plan.splits, batch, 2 * corpus_tile),
+            dtype=torch.int32,
+            device=queries.device,
+        )
+        arrivals = torch.zeros(
+            plan.row_tiles * plan.lane_chunks,
+            dtype=torch.int32,
+            device=queries.device,
+        )
     low_mask = (1 << (idx_bits + reserve_bits)) - 1
     stream = torch.cuda.current_stream(queries.device).cuda_stream
     err = lib.xfmr_packed_scan(
@@ -293,6 +422,8 @@ def packed_scan(
         None if scales is None else scales.data_ptr(),
         keys.data_ptr(),
         dmax.data_ptr(),
+        None if work is None else work.data_ptr(),
+        None if arrivals is None else arrivals.data_ptr(),
         batch,
         dim,
         num_tiles,
@@ -303,6 +434,7 @@ def packed_scan(
         reserve_bits,
         0 if bias_in_dot else 1,
         1 if track_discards else 0,
+        plan.splits,
         _Q_KINDS[queries.dtype],
         _CORPUS_KINDS[corpus.dtype],
         stream,
@@ -465,29 +597,19 @@ def count_at_least(
     return counts
 
 
-# rows of one block of the fused kernel: one arrival counter per row tile
-_FUSED_BLOCK_ROWS = 64
-
-
-def packed_scan_select(
+def _check_scan_select(
     queries: torch.Tensor,
     corpus: torch.Tensor,
     scales: torch.Tensor | None,
     k: int,
-    *,
     corpus_tile: int,
-    idx_bits: int,
-    merge_levels: int = 0,
-    merge_keep: int = 2,
-    capacity: int = 128,
-    bias_in_dot: bool = False,
-    true_num_items: int | None = None,
-    lane_shuffle: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the fused scan + merge + select kernel, once (same arguments
-    and results as `ops.topk.packed_lane_scan_select_plain`):
-    (keys (B, capacity), meta (B, capacity), dmax (B,)), all int32.
-    `merge_levels` is taken as given (already clamped)."""
+    merge_levels: int,
+    merge_keep: int,
+    capacity: int,
+) -> tuple[int, int, int, tuple[int, int, int, int, int]]:
+    """Argument checks of the fused kernel; returns (batch, dim,
+    num_tiles, select) with `select` = (corpus_tile, capacity,
+    merge_levels, keep3, pool_width) as the library takes them."""
     batch, dim, num_tiles = _check_scan(
         "packed_scan_select", queries, corpus, scales, corpus_tile
     )
@@ -510,6 +632,60 @@ def packed_scan_select(
     if not 0 < k <= capacity <= pool_width:
         msg = f"need 0 < {k=} <= {capacity=} <= {pool_width=}"
         raise ValueError(msg)
+    select = (corpus_tile, capacity, merge_levels, int(keep3), pool_width)
+    return batch, dim, num_tiles, select
+
+
+def packed_scan_select_splits(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    *,
+    corpus_tile: int,
+    merge_levels: int = 0,
+    merge_keep: int = 2,
+    capacity: int = 128,
+    **_ignored,
+) -> int:
+    """The corpus splits that `packed_scan_select` chooses for these
+    operands on this card (its other arguments are accepted and
+    ignored)."""
+    *_, select = _check_scan_select(
+        queries, corpus, None, k, corpus_tile, merge_levels, merge_keep,
+        capacity,
+    )
+    return _plan_sweep(
+        "xfmr_packed_scan_select_shape", queries, corpus, corpus_tile,
+        None, *select,
+    ).splits
+
+
+def packed_scan_select(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    scales: torch.Tensor | None,
+    k: int,
+    *,
+    corpus_tile: int,
+    idx_bits: int,
+    merge_levels: int = 0,
+    merge_keep: int = 2,
+    capacity: int = 128,
+    bias_in_dot: bool = False,
+    true_num_items: int | None = None,
+    lane_shuffle: int = 0,
+    splits: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the fused scan + merge + select kernel, once (same arguments
+    and results as `ops.topk.packed_lane_scan_select_plain`):
+    (keys (B, capacity), meta (B, capacity), dmax (B,)), all int32.
+    `merge_levels` is taken as given (already clamped). `splits` as in
+    `packed_scan`."""
+    batch, dim, num_tiles, select = _check_scan_select(
+        queries, corpus, scales, k, corpus_tile, merge_levels, merge_keep,
+        capacity,
+    )
+    keep3, pool_width = select[3:]
     device = queries.device
     keys = torch.empty((batch, capacity), dtype=torch.int32, device=device)
     meta = torch.empty_like(keys)
@@ -517,13 +693,21 @@ def packed_scan_select(
     dmax = torch.zeros(batch, dtype=torch.int32, device=device)
     if batch == 0:
         return keys, meta, dmax
+    lib = load()
+    plan = _plan_sweep(
+        "xfmr_packed_scan_select_shape", queries, corpus, corpus_tile,
+        splits, *select,
+    )
+    # every block parks its slots; one arrival counter per row tile and,
+    # to merge the splits, one per (row tile, lane chunk)
     work = torch.empty(
-        (batch, 2 * corpus_tile), dtype=torch.int32, device=device
+        (plan.splits, batch, 2 * corpus_tile), dtype=torch.int32, device=device
     )
     arrivals = torch.zeros(
-        -(-batch // _FUSED_BLOCK_ROWS), dtype=torch.int32, device=device
+        plan.row_tiles * (1 + (plan.lane_chunks if plan.splits > 1 else 0)),
+        dtype=torch.int32,
+        device=device,
     )
-    lib = load()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.xfmr_packed_scan_select(
         queries.data_ptr(),
@@ -547,8 +731,9 @@ def packed_scan_select(
         capacity,
         idx_bits + merge_levels,
         merge_levels,
-        1 if keep3 else 0,
+        keep3,
         pool_width,
+        plan.splits,
         _Q_KINDS[queries.dtype],
         _CORPUS_KINDS[corpus.dtype],
         stream,

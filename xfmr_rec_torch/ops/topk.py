@@ -86,10 +86,12 @@ def _packed_keys(
     return (keyi & ~low_mask) | (step << reserve_bits)
 
 
-def packed_lane_scan_plain(
+def _scan_tiles(
     queries: torch.Tensor,
     corpus: torch.Tensor,
     scales: torch.Tensor | None,
+    tile_begin: int,
+    tile_end: int,
     *,
     corpus_tile: int,
     idx_bits: int,
@@ -99,22 +101,17 @@ def packed_lane_scan_plain(
     lane_shuffle: int = 0,
     track_discards: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Plain PyTorch version of the packed scan kernel.
-
-    Takes the queries already scaled (and bias-augmented) as the kernel
-    does. Tile loop with an f32 matmul of the bf16/int8 inputs,
-    `torch.roll` for the lane shuffle, and the max/min slot contest.
-    Returns (keys (B, 2*ct) int32, dmax (B,) int32 or None).
-    """
+    """The slot contest over corpus tiles [tile_begin, tile_end), each
+    key stamped with its tile's index in the whole corpus: (best1, best2)
+    concatenated (B, 2*ct) and the per-row discard-max (B,) or None."""
     batch = queries.shape[0]
     ct = corpus_tile
-    num_tiles = corpus.shape[0] // ct
     q32 = queries.float()
     best1 = torch.zeros((batch, ct), dtype=torch.int32, device=queries.device)
     best2 = torch.zeros_like(best1)
     dmax = torch.zeros_like(best1) if track_discards else None
     lanes = torch.arange(ct, device=queries.device)
-    for step in range(num_tiles):
+    for step in range(tile_begin, tile_end):
         tile = corpus[step * ct : (step + 1) * ct].float()
         scores = q32 @ tile.T
         if scales is not None:
@@ -136,6 +133,99 @@ def packed_lane_scan_plain(
         best2 = torch.maximum(best2, contender)
     keys_out = torch.cat([best1, best2], dim=1)
     return keys_out, None if dmax is None else dmax.amax(dim=1)
+
+
+def packed_lane_scan_plain(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    scales: torch.Tensor | None,
+    *,
+    corpus_tile: int,
+    idx_bits: int,
+    reserve_bits: int = 0,
+    bias_in_dot: bool = False,
+    true_num_items: int | None = None,
+    lane_shuffle: int = 0,
+    track_discards: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain PyTorch version of the packed scan kernel.
+
+    Takes the queries already scaled (and bias-augmented) as the kernel
+    does. Tile loop with an f32 matmul of the bf16/int8 inputs,
+    `torch.roll` for the lane shuffle, and the max/min slot contest
+    (`_scan_tiles` over every tile). Returns (keys (B, 2*ct) int32,
+    dmax (B,) int32 or None).
+    """
+    return _scan_tiles(
+        queries,
+        corpus,
+        scales,
+        0,
+        corpus.shape[0] // corpus_tile,
+        corpus_tile=corpus_tile,
+        idx_bits=idx_bits,
+        reserve_bits=reserve_bits,
+        bias_in_dot=bias_in_dot,
+        true_num_items=true_num_items,
+        lane_shuffle=lane_shuffle,
+        track_discards=track_discards,
+    )
+
+
+def merge_split_slots_plain(
+    keys: Sequence[torch.Tensor], dmax: Sequence[torch.Tensor | None]
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain version of the kernel's merge of a corpus split over blocks.
+
+    `keys[s]` (B, 2*ct) and `dmax[s]` (B,) are the slots and discard-max
+    of the contest over the s-th range of tiles. A key carries its tile,
+    so the top-2 of a (row, lane) over the whole corpus is the top-2 of
+    its 2*S partial slots; the row's discard-max is the largest partial
+    discard-max or slot that this merge drops. Integer max and min only,
+    so the order of the parts does not matter."""
+    ct = keys[0].shape[1] // 2
+    best1 = torch.zeros_like(keys[0][:, :ct])
+    best2 = torch.zeros_like(best1)
+    dropped = torch.zeros_like(best1)
+    for part in keys:
+        for slot in (part[:, :ct], part[:, ct:]):
+            contender = torch.minimum(best1, slot)
+            best1 = torch.maximum(best1, slot)
+            dropped = torch.maximum(dropped, torch.minimum(best2, contender))
+            best2 = torch.maximum(best2, contender)
+    merged = torch.cat([best1, best2], dim=1)
+    if dmax[0] is None:
+        return merged, None
+    return merged, torch.maximum(
+        torch.stack(list(dmax)).amax(dim=0), dropped.amax(dim=1)
+    )
+
+
+def packed_lane_scan_split_plain(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    scales: torch.Tensor | None,
+    splits: int,
+    *,
+    corpus_tile: int,
+    **geometry,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain version of the packed scan kernel with its corpus tiles
+    split `splits` ways: the contest over each contiguous range of tiles
+    (the kernel's own ranges), then `merge_split_slots_plain`. Equal to
+    `packed_lane_scan_plain` bit for bit, whatever `splits`."""
+    num_tiles = corpus.shape[0] // corpus_tile
+    parts = [
+        _scan_tiles(
+            queries, corpus, scales, num_tiles * s // splits,
+            num_tiles * (s + 1) // splits, corpus_tile=corpus_tile,
+            **geometry,
+        )
+        for s in range(splits)
+    ]
+    return merge_split_slots_plain(
+        [keys for keys, _ in parts], [dmax for _, dmax in parts]
+    )
 
 
 def prepare_packed_scan(
