@@ -21,12 +21,14 @@ printing no result, when there is no card or any phase fails. Phases:
    held against dense exact top-k on the card;
 5. guaranteed-exact search (`search_certified(method="fused")`) at
    2^20 x 64 bf16, B=4096, k=100, against dense exact top-k, with its
-   throughput and a profile of one batch (device time by kernel and the
-   device's idle share);
+   throughput and a profile of one batch, and of one `"f32"` batch
+   (device time by kernel and the device's idle share);
 6. the f32 lane-max scan kernel, the count kernel and the fused
    scan + merge + select kernel against their plain versions: bit for
    bit on the exact inputs, within a stated tolerance on random unit
-   vectors at the retrieval geometry;
+   vectors at the retrieval geometry; the lane-max scan with its corpus
+   split over blocks (forced 2, 7 and one tile a split, and on a corpus
+   built to tie) equal to its unsplit launch and from run to run;
 7. the other certified paths at the same full width, each against dense
    exact top-k: `search_certified` with methods "f32" and "packed",
    `packed_guaranteed_topk(selector="fused")`, `certified_topk` with the
@@ -687,8 +689,8 @@ def phase_guaranteed(dev, card: str) -> dict:
             "queries": torch.from_numpy(batches[1]).to(dev, torch.bfloat16)}
 
 
-def phase_profile(guaranteed: dict, card: str) -> None:
-    """Device time by kernel for one guaranteed-exact batch and the
+def phase_profile(guaranteed: dict, card: str, method: str) -> None:
+    """Device time by kernel for one certified batch of `method` and the
     device's idle share of that batch's wall time (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -697,7 +699,7 @@ def phase_profile(guaranteed: dict, card: str) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         guaranteed["index"].search_certified(
-            guaranteed["batch"], top_k=BENCH_K, method="fused"
+            guaranteed["batch"], top_k=BENCH_K, method=method
         )
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -711,7 +713,7 @@ def phase_profile(guaranteed: dict, card: str) -> None:
         print("profile: torch.profiler recorded no device time on this card")
         return
     busy_ms = sum(row[0] for row in rows)
-    print(f"profile of one guaranteed batch (profiler on): wall {wall_ms:.3f} "
+    print(f"profile of one {method!r} batch (profiler on): wall {wall_ms:.3f} "
           f"ms, device busy {busy_ms:.3f} ms, device idle share "
           f"{1 - busy_ms / wall_ms:.4f} [{card}]")
     for dev_ms, count, name in rows[:8]:
@@ -791,7 +793,66 @@ def phase_lane_scan(dev, q, c) -> dict:
           f"reassociation of 64 terms); {same_pos:.6f} of positions "
           "identical")
     check(max(err, err_d, err_p) <= tol, "lane scan random-input error")
+    check_lane_splits(dev, q, c, got_v, got_p, got_d)
     return {"max_abs_err": max(err, err_d), "vals": got_v, "dmax": got_d}
+
+
+def tied_corpus(gen, num_items, dim, distinct=3) -> torch.Tensor:
+    """Every corpus row one of `distinct` rows of values k/16: each lane
+    sees the same few scores again and again over its tiles, so the
+    strict-`>` rule and the history it keeps decide most slots."""
+    pool = torch.randint(-8, 9, (distinct, dim), generator=gen).float() / 16
+    return pool[torch.randint(0, distinct, (num_items,), generator=gen)]
+
+
+def check_lane_splits(dev, q, c, full_v, full_p, full_d) -> None:
+    """The lane-max scan with its corpus tiles split over blocks: the
+    split merges in tile order and must give the unsplit slots, ties
+    included, whatever the splits and whichever block arrives last."""
+    kw = dict(corpus_tile=2048, slots=2, track_discards=True)
+    rows = 128  # the width `_host_escalation` pads its retries to
+    q_rows = q[:rows].contiguous()
+    num_tiles = c.shape[0] // 2048
+    chosen = kernels.lane_max_scan_splits(q_rows, c, **kw)
+    check(chosen > 1, "a 128-row lane scan was not split over blocks")
+    runs = {
+        "the unsplit B=4096 launch": (full_v[:rows], full_p[:rows],
+                                      full_d[:rows]),
+        "one split": kernels.lane_max_scan(q_rows, c, None, splits=1, **kw),
+        f"the wrapper's {chosen} splits": kernels.lane_max_scan(
+            q_rows, c, None, **kw),
+        "a second run": kernels.lane_max_scan(q_rows, c, None, **kw),
+    }
+    for forced in (2, 7, num_tiles):
+        runs[f"{forced} forced splits"] = kernels.lane_max_scan(
+            q_rows, c, None, splits=forced, **kw)
+    torch.cuda.synchronize()
+    base = runs["one split"]
+    for what, run in runs.items():
+        check(all(torch.equal(x, y) for x, y in zip(base, run, strict=True)),
+              f"split lane scan differs from {what}")
+    print(f"lane scan random B={rows} (the retry width): values, positions "
+          f"and dmax torch.equal across 1, {chosen} (the wrapper's), 2, 7 "
+          f"and {num_tiles} (one tile a split) splits, run to run, and to "
+          "the same rows of the unsplit B=4096 launch")
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    qt = (torch.randint(-8, 9, (rows, 64), generator=gen).float() / 16).to(
+        dev, torch.bfloat16)
+    ct = tied_corpus(gen, 1 << 16, 64).to(dev, torch.bfloat16)
+    kw = dict(kw, lane_shuffle=1)
+    want = topk_f32.lane_max_scan_plain(qt, ct, None, **kw)
+    tiles = ct.shape[0] // 2048
+    for splits in (1, 2, 7, tiles, None):
+        got = kernels.lane_max_scan(qt, ct, None, splits=splits, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, want, strict=True)),
+              f"tied lane scan differs from plain at splits={splits}")
+    tied = (want[0][:, :2048] == want[0][:, 2048:]).float().mean().item()
+    print(f"lane scan tie case B={rows} N=65536 (3 distinct corpus rows, "
+          f"{tied:.3f} of lanes hold two equal scores): values, positions "
+          f"and dmax bit-identical to plain at 1, 2, 7, {tiles} and the "
+          "wrapper's splits")
 
 
 def phase_count(dev, q, c, lane: dict) -> dict:
@@ -1253,21 +1314,27 @@ def phase_timings(guaranteed: dict, select: dict, certified: dict,
         lambda: topk_f32.lane_max_scan_plain(queries, corpus, None, **lane_kw),
         iters=2,
     )
-    lane_retry = {}
-    for rows in (256, 64):
+    lane_retry, lane_split = {}, {}
+    for rows in (256, 128, 64):
         q_rows = queries[:rows].contiguous()
         lane_retry[rows] = cuda_ms(
             lambda q_rows=q_rows: kernels.lane_max_scan(q_rows, corpus, None,
                                                         **lane_kw)
         )
+        lane_split[rows] = kernels.lane_max_scan_splits(q_rows, corpus,
+                                                        **lane_kw)
+    lane_split[b] = kernels.lane_max_scan_splits(queries, corpus, **lane_kw)
     lane_bytes_ms = (b * d * 2 + n * d * 2 + 2 * b * 2 * ct * 4 + b * 4
                      ) / HBM_BYTES_PER_S * 1e3
-    # per score: 2 compares, 5 selects, the position, the discard max
+    # per score: 2 compares, 5 selects, the discard max and the tile
+    # bookkeeping (counted as one, as the data sheet's bound is kept)
     lane_ops_ms = 9 * b * n / INT32_OPS * 1e3
     lane_bound = bound_of(lane_bytes_ms, dot_ms, lane_ops_ms)
     print(f"lane_max_scan at B={b} N={n} D={d} ct={ct} slots=2: kernel "
           f"{lane_ms:.3f} ms, plain {lane_plain_ms:.3f} ms; at B=256 "
-          f"{lane_retry[256]:.3f} ms, B=64 {lane_retry[64]:.3f} ms; bound "
+          f"{lane_retry[256]:.3f} ms, B=128 {lane_retry[128]:.3f} ms, B=64 "
+          f"{lane_retry[64]:.3f} ms (corpus splits {lane_split[b]}, "
+          f"{lane_split[256]}, {lane_split[128]}, {lane_split[64]}); bound "
           f"{lane_bound['bound_ms']:.3f} ms (bytes {lane_bytes_ms:.3f}, bf16 "
           f"dot on tensor cores {dot_ms:.3f}, f32/int32 contest "
           f"{lane_ops_ms:.3f}) [{card}]")
@@ -1292,7 +1359,10 @@ def phase_timings(guaranteed: dict, select: dict, certified: dict,
     count_bytes_ms = (b * d * 2 + n * d * 2 + 2 * b * 4) / HBM_BYTES_PER_S * 1e3
     count_ops_ms = 2 * b * n / INT32_OPS * 1e3  # a compare and an add
     count_bound = bound_of(count_bytes_ms, dot_ms, count_ops_ms)
-    print(f"count_at_least at B={b} N={n} D={d}: kernel {count_ms:.3f} ms, "
+    count_split = kernels.count_at_least_splits(queries, corpus,
+                                                corpus_tile=ct)
+    print(f"count_at_least at B={b} N={n} D={d} (corpus splits "
+          f"{count_split}): kernel {count_ms:.3f} ms, "
           f"plain {count_plain_ms:.3f} ms, (q @ c.T >= tau).sum(-1) in f32 "
           f"{count_lib_ms:.3f} ms; bound {count_bound['bound_ms']:.3f} ms "
           f"(bytes {count_bytes_ms:.3f}, bf16 dot on tensor cores "
@@ -1389,7 +1459,8 @@ def main() -> int:
     guaranteed = phase_guaranteed(dev, card)
     certified = phase_certified(dev, card, guaranteed)
     timings = phase_timings(guaranteed, select, certified, card)
-    phase_profile(guaranteed, card)
+    phase_profile(guaranteed, card, "fused")
+    phase_profile(guaranteed, card, "f32")
 
     # launches on the main paths only: each path ran with the counts set
     # to 0 just before it and read just after

@@ -190,16 +190,20 @@ def test_kernel_sources_present():
     "source", ["lane_max_scan.cu", "count_at_least.cu", "packed_scan_select.cu"]
 )
 def test_scan_kernels_do_their_own_dot(source):
-    """The dot of each scan kernel is the repo's own: the fmaf chain of
-    the shared `tile_dot` (kernels 3 and 4, and the f32 packed sweep) or
-    the tensor-core sweep of packed_sweep.cuh, not a library call."""
+    """The dot of each scan kernel is the repo's own: the tensor-core loop
+    `mma_sweep` for bf16 and int8, the fmaf chain of the shared
+    `tile_dot` (through `fma_sweep`) for f32 x f32, reached directly
+    (kernels 3 and 4) or through packed_sweep.cuh (kernel 5); never a
+    library call."""
     text = (kernels.CSRC_DIR / source).read_text()
-    assert "tile_dot<" in text or "with_sweep(" in text
+    own_loops = "mma_sweep<" in text and "fma_sweep<" in text
+    assert own_loops or "with_sweep(" in text
     for banned in ("cublas", "cutlass", "#include <torch", "#include <aten"):
         assert banned not in text.lower()
-    assert "fmaf(" in (kernels.CSRC_DIR / "scan_common.cuh").read_text()
+    common = (kernels.CSRC_DIR / "scan_common.cuh").read_text()
+    assert "fmaf(" in common and "tile_dot<R>(sm, dim, acc)" in common
     sweep = (kernels.CSRC_DIR / "packed_sweep.cuh").read_text()
-    assert "tile_dot<" in sweep and "f(FmaSweep{})" in sweep
+    assert "fma_sweep<" in sweep and "f(FmaSweep{})" in sweep
 
 
 BANNED_IN_SWEEP = ("cublas", "#include <torch", "#include <aten",
@@ -209,12 +213,13 @@ BANNED_IN_SWEEP = ("cublas", "#include <torch", "#include <aten",
 @pytest.mark.parametrize(
     "source",
     ["mma_sweep.cuh", "packed_sweep.cuh", "packed_scan.cu",
-     "packed_scan_select.cu"],
+     "packed_scan_select.cu", "lane_max_scan.cu", "count_at_least.cu"],
 )
 def test_packed_sweep_multiplies_on_tensor_cores_itself(source):
-    """Kernels 1 and 5 form their bf16 and int8 scores with `wgmma`
-    written out in the repo's own header, behind `cp.async` copies, and
-    reach it through `MmaSweep`; no library GEMM anywhere on the way."""
+    """Kernels 1, 3, 4 and 5 form their bf16 and int8 scores with `wgmma`
+    written out in the repo's own header, behind `cp.async` copies, in
+    one loop (`mma_sweep`) that kernels 1 and 5 reach through `MmaSweep`;
+    no library GEMM anywhere on the way."""
     text = (kernels.CSRC_DIR / source).read_text()
     for banned in BANNED_IN_SWEEP:
         assert banned not in text.lower()
@@ -222,13 +227,20 @@ def test_packed_sweep_multiplies_on_tensor_cores_itself(source):
         assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in text
         assert "cp.async.cg.shared.global" in text
         assert "fence.proxy.async" in text
+        assert "mma_tile(acc, a_addr" in text and "ring.acquire(" in text
     elif source == "packed_sweep.cuh":
         assert '#include "mma_sweep.cuh"' in text
-        assert "mma_tile(" in text and "ring.acquire(" in text
+        assert "mma_sweep<CT, kAsync>(" in text
         # one sweep per dtype pair, chosen in one place
         for pair in ("f(MmaSweep<__nv_bfloat16, true>{})",
                      "f(MmaSweep<int8_t, true>{})", "f(FmaSweep{})"):
             assert text.count(pair) == 1
+    elif source in ("lane_max_scan.cu", "count_at_least.cu"):
+        # the f32-value sweeps: one loop, one lane width for both kernels
+        assert '#include "mma_sweep.cuh"' in text
+        assert text.count("mma_sweep<") == 1
+        assert "kLanes = kMmaLanes" in text
+        assert "tile_dot<" not in text and "ring.acquire(" not in text
     else:
         # no old sweep kept beside the new one, no sweep chosen here
         assert text.count("with_sweep(") == 2

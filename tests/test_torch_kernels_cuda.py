@@ -9,6 +9,9 @@ Run them on a card with
 not need.)
 """
 
+import pathlib
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -318,3 +321,116 @@ def test_packed_scan_select_split_over_blocks_matches_plain(card, opts, splits):
         assert torch.equal(g, c)
     for g, w in zip(got, want, strict=True):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize(
+    "opts",
+    [
+        dict(slots=2, track_discards=True),
+        dict(slots=1, track_discards=True, lane_shuffle=3),
+        dict(slots=2, track_discards=True, lane_shuffle=1, true_num_items=1500),
+        dict(slots=2, int8=True, lane_shuffle=5),
+        dict(slots=2, track_discards=True, f32=True),
+        # tiles narrower than a block's lanes
+        dict(slots=2, track_discards=True, dim=32, corpus_tile=64),
+    ],
+)
+def test_lane_max_scan_split_over_blocks_matches_plain(card, opts, splits):
+    """The corpus tiles split over blocks (forced, and whatever the
+    wrapper chooses for this small batch) give the unsplit plain slots."""
+    opts = dict(opts)
+    int8 = opts.pop("int8", False)
+    f32 = opts.pop("f32", False)
+    dim = opts.pop("dim", 64)
+    opts.setdefault("corpus_tile", 512)
+    tq, tc, ts, _ = scan_tensors(card, 9, 70, 2048, dim, int8=int8, f32=f32)
+    want = topk_f32.lane_max_scan_plain(tq.cpu(), tc.cpu(), on_cpu(ts), **opts)
+    for forced in (splits, None):
+        got = kernels.lane_max_scan(tq, tc, ts, splits=forced, **opts)
+        for g, w in zip(got, want, strict=True):
+            if w is None:
+                assert g is None
+            else:
+                torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    assert kernels.lane_max_scan_splits(tq, tc, **opts) > 1
+
+
+def tied_corpus(seed, num_items, dim, distinct=3):
+    """Every corpus row one of `distinct` rows of small integers: each lane
+    sees the same few scores again and again over its tiles, so the
+    strict-`>` rule and the history it keeps decide most slots."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(-8, 9, size=(distinct, dim)).astype(np.float32) / 16
+    return pool[rng.integers(0, distinct, size=num_items)]
+
+
+@pytest.mark.parametrize("slots", [1, 2])
+def test_lane_max_scan_ties_across_splits(card, slots):
+    """Rows repeated over the tiles of one lane: every split, down to one
+    tile a split, gives the unsplit slots, positions and discard-max."""
+    rng = np.random.default_rng(10)
+    q = rng.integers(-8, 9, size=(70, 64)).astype(np.float32) / 16
+    c = tied_corpus(11, 4096, 64)
+    tq = torch.from_numpy(q).to(card, torch.bfloat16)
+    tc = torch.from_numpy(c).to(card, torch.bfloat16)
+    kw = dict(corpus_tile=256, slots=slots, track_discards=True, lane_shuffle=1)
+    want = topk_f32.lane_max_scan_plain(tq.cpu(), tc.cpu(), None, **kw)
+    for splits in (1, 2, 3, 5, 16):
+        got = kernels.lane_max_scan(tq, tc, None, splits=splits, **kw)
+        for g, w in zip(got, want, strict=True):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("f32", [False, True])
+def test_count_at_least_split_over_blocks_matches_plain(card, f32, splits):
+    tq, tc, _, _ = scan_tensors(card, 12, 70, 2048, 64, f32=f32)
+    vals, _, _ = kernels.lane_max_scan(tq, tc, None, corpus_tile=512, slots=2)
+    tau = topk.topk_stable(vals, 20)[0][:, -1].contiguous()
+    kw = dict(corpus_tile=512, true_num_items=1900)
+    want = topk_f32.count_at_least_plain(tq.cpu(), tc.cpu(), tau.cpu(), **kw)
+    for forced in (splits, None):
+        got = kernels.count_at_least(tq, tc, tau, splits=forced, **kw)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    assert kernels.count_at_least_splits(tq, tc, **kw) > 1
+
+
+@pytest.mark.parametrize("splits", [1, 3, 16])
+def test_count_at_least_ties_across_splits(card, splits):
+    """tau from the lane scan kernel on the corpus built to tie: a tau that
+    many items share, each of which counts, whatever the splits."""
+    rng = np.random.default_rng(13)
+    q = rng.integers(-8, 9, size=(70, 64)).astype(np.float32) / 16
+    tq = torch.from_numpy(q).to(card, torch.bfloat16)
+    tc = torch.from_numpy(tied_corpus(14, 4096, 64)).to(card, torch.bfloat16)
+    vals, _, _ = kernels.lane_max_scan(tq, tc, None, corpus_tile=256, slots=2)
+    tau = topk.topk_stable(vals, 20)[0][:, -1].contiguous()
+    want = topk_f32.count_at_least_plain(
+        tq.cpu(), tc.cpu(), tau.cpu(), corpus_tile=256
+    )
+    assert bool((want > 20).all())  # tau is shared by many items
+    got = kernels.count_at_least(tq, tc, tau, corpus_tile=256, splits=splits)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_lane_scan_and_count_run_on_tensor_cores_without_spills(
+    card, tmp_path, monkeypatch
+):
+    """A fresh build of kernels 3 and 4: `ptxas` reports no spill in any
+    instantiation, and the machine code multiplies with HGMMA."""
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    kernels.build(verbose=True)
+    sections = kernels.last_build_log.split("== ")
+    for source in ("lane_max_scan.cu", "count_at_least.cu"):
+        log = next(s for s in sections if s.startswith(source))
+        spills = [line for line in log.splitlines() if "spill stores" in line]
+        assert spills and all("0 bytes spill stores" in line for line in spills)
+        assert all("0 bytes spill loads" in line for line in spills)
+        obj = next(tmp_path.glob(f"{source.removesuffix('.cu')}_*.o"))
+        cuobjdump = pathlib.Path(kernels._nvcc()).with_name("cuobjdump")
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", str(obj)], capture_output=True,
+            text=True, check=True,
+        ).stdout
+        assert "HGMMA" in sass

@@ -1,5 +1,8 @@
 // Score tiles on Hopper's tensor cores behind a ring of corpus tiles in
-// shared memory: the machinery under the packed sweep (packed_sweep.cuh).
+// shared memory: the machinery under every bf16 and int8 sweep (the
+// packed sweep of packed_sweep.cuh, the value contest of
+// lane_max_scan.cu, the count of count_at_least.cu). `mma_sweep` is the
+// loop they share; each brings its own contest.
 //
 // One warpgroup (128 threads) forms the scores of 64 query rows against
 // kMmaLanes lanes of a corpus tile with `wgmma.mma_async`, bf16 x bf16
@@ -31,7 +34,9 @@
 // The accumulator layout of wgmma (m64nNk16, f32): thread `tid` of the
 // warpgroup holds rows 16*(tid/32) + (tid%32)/4 + {0, 8}; of every group
 // of 8 columns j it holds columns 8j + 2*(tid%4) + {0, 1}; register
-// 4j + 2h + e is row-half h, column e.
+// 4j + 2h + e is row-half h, column e. The product of a score depends on
+// nothing but its query row, its corpus row and the k order, so every
+// kernel that takes a score from `mma_tile` rounds it the same way.
 
 #pragma once
 
@@ -396,5 +401,49 @@ struct CorpusRing {
     if constexpr (kAsync) start_next();
   }
 };
+
+// The loop every tensor-core sweep runs: the block's 64 query rows from
+// row0 against lanes lane0 .. lane0+kMmaLanes-1 of corpus tiles
+// [tile_begin, tile_end). Stages the queries, then per tile acquires it
+// from the ring, multiplies, waits, and calls contest(acc, t, scale_s)
+// with the thread's scores of tile t in the accumulator layout (scale_s:
+// the tile's kMmaLanes scales in shared memory, when `scales` is not
+// null). `smem` holds `mma_smem_bytes<CT, kAsync>(dim)` bytes. Ends
+// without a barrier: a thread may still be reading the scales.
+template <typename CT, bool kAsync, typename Contest>
+__device__ __forceinline__ void mma_sweep(
+    unsigned char* smem, const __nv_bfloat16* __restrict__ queries,
+    const CT* __restrict__ corpus, const float* __restrict__ scales,
+    int batch, int dim, int corpus_tile, int lane_shuffle, int row0,
+    int lane0, int tile_begin, int tile_end, Contest&& contest) {
+  // the swizzle pattern repeats every 1024 bytes of address
+  unsigned char* base = smem + ((1024 - (shared_addr(smem) & 1023)) & 1023);
+  CorpusRing<CT, kAsync> ring;
+  ring.init(base + mma_panels(dim) * kMmaRows * 128, corpus, scales, dim,
+            corpus_tile, lane0, lane_shuffle, tile_begin, tile_end);
+  stage_queries_mma(base, queries, row0, batch, dim);
+  if (tile_begin >= tile_end) return;
+
+  const uint32_t a_addr = shared_addr(base);
+  const int k_steps = mma_k_steps(dim);
+  float acc[kMmaAcc];
+  for (int t = tile_begin; t < tile_end; ++t) {
+    ring.acquire(t);
+    mma_tile(acc, a_addr, shared_addr(ring.stage(t)), k_steps);
+    wgmma_wait<0>();
+    fence_acc(acc);
+    contest(acc, t, ring.tile_scales(t));
+  }
+}
+
+// The asynchronous ring serves rows of a multiple of 16 bytes at a
+// 16-byte-aligned pointer (`aligned`).
+template <typename CT>
+inline bool ring_async(bool aligned, int dim) {
+  return aligned && dim * sizeof(CT) % 16 == 0;
+}
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
 }  // namespace xfmr

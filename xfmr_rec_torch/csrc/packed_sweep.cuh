@@ -27,17 +27,18 @@
 // What the design does about it. Two sweeps with one interface:
 //   - `MmaSweep` (bf16 queries, bf16 or int8 corpus): one warpgroup owns
 //     64 rows x kMmaLanes lanes. The scores of a tile come from wgmma
-//     (mma_sweep.cuh) and the contest runs on the accumulator registers
-//     where they land, the slot state in the same layout, so no score
-//     moves between threads. That is 64 slot and 32 accumulator
-//     registers a thread, 128 in all, so four blocks share an SM: while
-//     one waits for its product or at a barrier, the others contest. The
-//     corpus ring keeps two more tiles on their way. The scale and the
-//     +1.5 stay two separately rounded f32 steps, as in the reference.
+//     (`mma_sweep` of mma_sweep.cuh) and the contest runs on the
+//     accumulator registers where they land, the slot state in the same
+//     layout, so no score moves between threads. That is 64 slot and 32
+//     accumulator registers a thread, 128 in all, so four blocks share an
+//     SM: while one waits for its product or at a barrier, the others
+//     contest. The corpus ring keeps two more tiles on their way. The
+//     scale and the +1.5 stay two separately rounded f32 steps, as in the
+//     reference.
 //   - `FmaSweep` (f32 queries and corpus): the f32 `fmaf` chain of
-//     scan_common.cuh, 64 rows x 128 lanes on 256 threads. It stays on
-//     the CUDA cores because TF32 would drop mantissa bits that the
-//     reference keeps.
+//     scan_common.cuh (`fma_sweep`), 64 rows x 128 lanes on 256
+//     threads. It stays on the CUDA cores because TF32 would drop
+//     mantissa bits that the reference keeps.
 // Each is a struct of static members: the block's shape (kThreads, kRows,
 // kLanes), `Slots` (the registers of one thread), `run` (the sweep over
 // tiles [tile_begin, tile_end)), `each_slot` and `each_row_discard`
@@ -76,30 +77,6 @@ __device__ __forceinline__ void slot_contest(int key, int& best1, int& best2,
   disc = max(disc, min(best2, contender));
   best2 = max(best2, contender);
   best1 = max(best1, key);
-}
-
-// The contiguous range of tiles that split `split` of `splits` sweeps.
-__device__ __forceinline__ void split_range(int num_tiles, int split,
-                                            int splits, int& tile_begin,
-                                            int& tile_end) {
-  tile_begin = static_cast<int>(static_cast<long long>(num_tiles) * split /
-                                splits);
-  tile_end = static_cast<int>(static_cast<long long>(num_tiles) *
-                              (split + 1) / splits);
-}
-
-// Counts this block in on `counter` after making its global writes
-// visible; true in the block that arrives last of `expected`, which then
-// sees every other block's writes. `flag` is a shared int. No block waits.
-__device__ __forceinline__ bool arrives_last(int* counter, int expected,
-                                             int* flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) *flag = atomicAdd(counter, 1) == expected - 1;
-  __syncthreads();
-  if (!*flag) return false;
-  __threadfence();
-  return true;
 }
 
 // Merges the partial slots that the `splits` blocks of one (row tile,
@@ -163,9 +140,7 @@ struct FmaSweep {
       const float* __restrict__ corpus, const float* __restrict__ scales,
       const PackedSweepArgs& a, int row0, int lane0, int tile_begin,
       int tile_end, Slots& s) {
-    const SweepSmem<kPackedRows> sm(reinterpret_cast<float*>(smem), a.dim);
     const int tx = threadIdx.x & 31;
-    stage_queries<kPackedRows>(sm, queries, row0, a.batch, a.dim);
 #pragma unroll
     for (int i = 0; i < kPackedRows; ++i) {
       s.disc[i] = 0;
@@ -175,41 +150,36 @@ struct FmaSweep {
         s.best2[i][j] = 0;
       }
     }
-
-    for (int t = tile_begin; t < tile_end; ++t) {
-      const int shift = tile_shift(t, a.lane_shuffle, a.corpus_tile);
-      const size_t tile_base = static_cast<size_t>(t) * a.corpus_tile;
-      __syncthreads();  // previous tile fully consumed (and q_s written)
-      stage_tile<kPackedRows>(sm, corpus, scales, tile_base, lane0, shift,
-                              a.corpus_tile, a.dim);
-      __syncthreads();
-
-      float acc[kPackedRows][kLanesPerThread];
-      tile_dot<kPackedRows>(sm, a.dim, acc);
-
-      const int stamp = t << a.reserve_bits;
+    fma_sweep<kPackedRows>(
+        reinterpret_cast<float*>(smem), queries, corpus, scales, a.batch,
+        a.dim, a.corpus_tile, a.lane_shuffle, row0, lane0, tile_begin,
+        tile_end,
+        [&](const float (&acc)[kPackedRows][kLanesPerThread], int t,
+            int shift, const float* scale_s) {
+          const size_t tile_base = static_cast<size_t>(t) * a.corpus_tile;
+          const int stamp = t << a.reserve_bits;
 #pragma unroll
-      for (int j = 0; j < kLanesPerThread; ++j) {
-        const int ll = tx + 32 * j;
-        const int lane = lane0 + ll;
-        const long long item = static_cast<long long>(tile_base) +
-                               lane_column(lane, shift, a.corpus_tile);
-        const bool live = lane < a.corpus_tile &&
-                          (a.true_num_items < 0 || item < a.true_num_items);
-        const float scale = scales != nullptr ? sm.scale_s[ll] : 1.f;
+          for (int j = 0; j < kLanesPerThread; ++j) {
+            const int ll = tx + 32 * j;
+            const int lane = lane0 + ll;
+            const long long item = static_cast<long long>(tile_base) +
+                                   lane_column(lane, shift, a.corpus_tile);
+            const bool live = lane < a.corpus_tile &&
+                              (a.true_num_items < 0 || item < a.true_num_items);
+            const float scale = scales != nullptr ? scale_s[ll] : 1.f;
 #pragma unroll
-        for (int i = 0; i < kPackedRows; ++i) {
-          float v = acc[i][j];
-          // separate roundings, never contracted into one FMA: the
-          // reference multiplies by the scale, then adds the window bias
-          if (scales != nullptr) v = __fmul_rn(v, scale);
-          if (a.add_bias) v = __fadd_rn(v, 1.5f);
-          int key = (__float_as_int(v) & ~a.low_mask) | stamp;
-          key = live ? key : 0;
-          slot_contest(key, s.best1[i][j], s.best2[i][j], s.disc[i]);
-        }
-      }
-    }
+            for (int i = 0; i < kPackedRows; ++i) {
+              float v = acc[i][j];
+              // separate roundings, never contracted into one FMA: the
+              // reference multiplies by the scale, then adds the window bias
+              if (scales != nullptr) v = __fmul_rn(v, scale);
+              if (a.add_bias) v = __fadd_rn(v, 1.5f);
+              int key = (__float_as_int(v) & ~a.low_mask) | stamp;
+              key = live ? key : 0;
+              slot_contest(key, s.best1[i][j], s.best2[i][j], s.disc[i]);
+            }
+          }
+        });
   }
 
   // f(row in block, lane in block, best1, best2) for each of the thread's
@@ -312,9 +282,8 @@ struct MmaSweep {
   }
 
   static __device__ __forceinline__ void contest_tile(
-      float (&acc)[kMmaAcc], Slots& s, const PackedSweepArgs& a, int t,
+      const float (&acc)[kMmaAcc], Slots& s, const PackedSweepArgs& a, int t,
       int lane0, const float* scale_s, bool scaled) {
-    fence_acc(acc);
     const bool masked =
         lane0 + kMmaLanes > a.corpus_tile ||
         (a.true_num_items >= 0 &&
@@ -347,27 +316,13 @@ struct MmaSweep {
         s.best2[h][c] = 0;
       }
     }
-    // the swizzle pattern repeats every 1024 bytes of address
-    unsigned char* base =
-        smem + ((1024 - (shared_addr(smem) & 1023)) & 1023);
-    unsigned char* a_s = base;
-    CorpusRing<CT, kAsync> ring;
-    ring.init(base + mma_panels(a.dim) * kMmaRows * 128, corpus, scales,
-              a.dim, a.corpus_tile, lane0, a.lane_shuffle, tile_begin,
-              tile_end);
-    stage_queries_mma(a_s, queries, row0, a.batch, a.dim);
-    if (tile_begin >= tile_end) return;
-
-    const uint32_t a_addr = shared_addr(a_s);
-    const int k_steps = mma_k_steps(a.dim);
     const bool scaled = scales != nullptr;
-    float acc[kMmaAcc];
-    for (int t = tile_begin; t < tile_end; ++t) {
-      ring.acquire(t);
-      mma_tile(acc, a_addr, shared_addr(ring.stage(t)), k_steps);
-      wgmma_wait<0>();
-      contest_tile(acc, s, a, t, lane0, ring.tile_scales(t), scaled);
-    }
+    mma_sweep<CT, kAsync>(
+        smem, queries, corpus, scales, a.batch, a.dim, a.corpus_tile,
+        a.lane_shuffle, row0, lane0, tile_begin, tile_end,
+        [&](const float (&acc)[kMmaAcc], int t, const float* scale_s) {
+          contest_tile(acc, s, a, t, lane0, scale_s, scaled);
+        });
   }
 
   template <typename F>
@@ -406,36 +361,20 @@ struct MmaSweep {
 // its result, or cudaErrorInvalidValue for any other pair. One sweep per
 // pair; the asynchronous ring wherever the corpus rows allow it
 // (`aligned`: the corpus pointer is a multiple of 16 bytes).
-inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
 template <typename F>
 int with_sweep(int q_kind, int corpus_kind, bool aligned, int dim, F&& f) {
   if (q_kind == 0 && corpus_kind == 0) {
-    if (aligned && dim % 8 == 0) return f(MmaSweep<__nv_bfloat16, true>{});
+    if (ring_async<__nv_bfloat16>(aligned, dim)) {
+      return f(MmaSweep<__nv_bfloat16, true>{});
+    }
     return f(MmaSweep<__nv_bfloat16, false>{});
   }
   if (q_kind == 0 && corpus_kind == 1) {
-    if (aligned && dim % 16 == 0) return f(MmaSweep<int8_t, true>{});
+    if (ring_async<int8_t>(aligned, dim)) return f(MmaSweep<int8_t, true>{});
     return f(MmaSweep<int8_t, false>{});
   }
   if (q_kind == 1 && corpus_kind == 2) return f(FmaSweep{});
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The block shape of `kernel` run with `Sweep` and `smem` bytes of shared
-// memory, for the wrapper's split plan: shape[0] rows and shape[1] lanes
-// of a block, shape[2] blocks that one SM holds at a time (by registers,
-// threads and shared memory, as the runtime counts them).
-template <typename Sweep, typename Kernel>
-int sweep_shape(Kernel kernel, size_t smem, int* shape) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  shape[0] = Sweep::kRows;
-  shape[1] = Sweep::kLanes;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&shape[2], kernel,
-                                                      Sweep::kThreads, smem);
-  return static_cast<int>(err);
 }
 
 }  // namespace xfmr

@@ -1,13 +1,16 @@
-// Corpus sweep shared by the scan kernels (packed_scan.cu,
-// lane_max_scan.cu, count_at_least.cu, packed_scan_select.cu).
+// What every scan kernel (packed_scan.cu, lane_max_scan.cu,
+// count_at_least.cu, packed_scan_select.cu) shares: the lane shuffle,
+// the split of the corpus tiles over blocks and the count of arrivals
+// that merges them, the block-shape query the wrappers plan splits by,
+// and the f32 `fmaf` sweep of the f32 x f32 instantiations.
 //
-// A block of 256 threads owns 8*R query rows and 128 lanes of the corpus
-// tile (R rows x 4 lanes per thread) and walks every corpus tile. Per
-// tile it stages the 128 corpus rows its lanes read (row-major, odd
-// stride, so the strided lane reads hit distinct banks) and, once, its
-// queries transposed (so the R rows of a thread load as broadcast
-// float4), both converted to f32, then `tile_dot` forms the R x 4 scores
-// of each thread.
+// The fmaf sweep (`fma_sweep`). A block of 256 threads owns 8*R query
+// rows and 128 lanes of the corpus tile (R rows x 4 lanes per thread)
+// and walks a range of corpus tiles. Per tile it stages the 128 corpus
+// rows its lanes read (row-major, odd stride, so the strided lane reads
+// hit distinct banks) and, once, its queries transposed (so the R rows of
+// a thread load as broadcast float4), both converted to f32, then
+// `tile_dot` forms the R x 4 scores of each thread.
 //
 // One accumulation order for every kernel: a score is the f32 chain
 // fmaf(q[d], c[d], acc) over d = 0 .. dim-1 from acc = 0, whatever R is.
@@ -160,12 +163,89 @@ __device__ __forceinline__ void tile_dot(const SweepSmem<R>& sm, int dim,
   }
 }
 
+// Walks corpus tiles [tile_begin, tile_end) for the block's 8*R rows
+// from row0 and 128 lanes from lane0: stages the queries once, then per
+// tile the corpus rows, and calls contest(acc, t, shift, scale_s) with
+// the thread's R x 4 scores of tile t. Ends without a barrier: threads
+// may still be reading shared memory.
+template <int R, typename QT, typename CT, typename Contest>
+__device__ __forceinline__ void fma_sweep(
+    float* smem, const QT* __restrict__ queries,
+    const CT* __restrict__ corpus, const float* __restrict__ scales,
+    int batch, int dim, int corpus_tile, int lane_shuffle, int row0,
+    int lane0, int tile_begin, int tile_end, Contest&& contest) {
+  const SweepSmem<R> sm(smem, dim);
+  stage_queries<R>(sm, queries, row0, batch, dim);
+  for (int t = tile_begin; t < tile_end; ++t) {
+    const int shift = tile_shift(t, lane_shuffle, corpus_tile);
+    const size_t tile_base = static_cast<size_t>(t) * corpus_tile;
+    __syncthreads();  // previous tile fully consumed (and q_s written)
+    stage_tile<R>(sm, corpus, scales, tile_base, lane0, shift, corpus_tile,
+                  dim);
+    __syncthreads();
+    float acc[R][kLanesPerThread];
+    tile_dot<R>(sm, dim, acc);
+    contest(acc, t, shift, sm.scale_s);
+  }
+}
+
+// The contiguous range of tiles that split `split` of `splits` sweeps.
+__device__ __forceinline__ void split_range(int num_tiles, int split,
+                                            int splits, int& tile_begin,
+                                            int& tile_end) {
+  tile_begin = static_cast<int>(static_cast<long long>(num_tiles) * split /
+                                splits);
+  tile_end = static_cast<int>(static_cast<long long>(num_tiles) *
+                              (split + 1) / splits);
+}
+
+// Counts this block in on `counter` after making its global writes
+// visible; true in the block that arrives last of `expected`, which then
+// sees every other block's writes. `flag` is a shared int. No block waits.
+__device__ __forceinline__ bool arrives_last(int* counter, int expected,
+                                             int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *flag = atomicAdd(counter, 1) == expected - 1;
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();
+  return true;
+}
+
+// Float max by integer atomics, for any float including -inf and
+// negatives: atomicMax on the bits orders the non-negative ones,
+// atomicMin on the unsigned bits the negative ones, and together they
+// order every float (the buffer starts at -inf).
+__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
+  if (__float_as_int(v) >= 0) {
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+  } else {
+    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+  }
+}
+
 // Raise the kernel's dynamic shared memory limit to `bytes`.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// The block shape of `kernel` run with `Sweep` and `smem` bytes of shared
+// memory, for the wrapper's split plan: shape[0] rows and shape[1] lanes
+// of a block, shape[2] blocks that one SM holds at a time (by registers,
+// threads and shared memory, as the runtime counts them).
+template <typename Sweep, typename Kernel>
+int sweep_shape(Kernel kernel, size_t smem, int* shape) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  shape[0] = Sweep::kRows;
+  shape[1] = Sweep::kLanes;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&shape[2], kernel,
+                                                      Sweep::kThreads, smem);
+  return static_cast<int>(err);
 }
 
 }  // namespace xfmr

@@ -178,20 +178,33 @@ def load() -> ctypes.CDLL:
             lib.xfmr_lane_max_scan.argtypes = [
                 _VOID, _VOID, _VOID,  # q, corpus, scales
                 _VOID, _VOID, _VOID,  # vals, pos, dmax
+                _VOID, _VOID, _VOID,  # work_vals, work_tiles, arrivals
                 _INT, _INT, _INT, _INT,  # batch, dim, num_tiles, corpus_tile
                 _INT, _INT, _INT, _INT,  # slots, true_n, shuffle, discards
+                _INT,  # splits
                 _INT, _INT,  # q_kind, corpus_kind
                 _VOID,  # stream
             ]
             lib.xfmr_lane_max_scan.restype = _INT
+            lib.xfmr_lane_max_scan_shape.argtypes = [
+                _INT, _INT, _INT,  # aligned, dim, slots
+                _INT, _INT,  # q_kind, corpus_kind
+                _VOID,  # shape
+            ]
+            lib.xfmr_lane_max_scan_shape.restype = _INT
             lib.xfmr_count_at_least.argtypes = [
                 _VOID, _VOID, _VOID, _VOID,  # q, corpus, tau, counts
                 _INT, _INT, _INT, _INT,  # batch, dim, num_tiles, corpus_tile
-                _INT,  # true_n
+                _INT, _INT,  # true_n, splits
                 _INT, _INT,  # q_kind, corpus_kind
                 _VOID,  # stream
             ]
             lib.xfmr_count_at_least.restype = _INT
+            lib.xfmr_count_at_least_shape.argtypes = [
+                _INT, _INT, _INT, _INT,  # aligned, dim, q_kind, corpus_kind
+                _VOID,  # shape
+            ]
+            lib.xfmr_count_at_least_shape.restype = _INT
             lib.xfmr_packed_scan_select.argtypes = [
                 _VOID, _VOID, _VOID,  # q, corpus, scales
                 _VOID, _VOID,  # work, arrivals
@@ -314,8 +327,8 @@ def _block_shape(
     shape_fn: str, device: int, *args: int
 ) -> tuple[int, int, int, int]:
     """(rows of a block, lanes of a block, blocks an SM holds at a time,
-    SMs) of one packed-sweep kernel on one card, from the kernel's shape
-    query in the library: fixed for given arguments, so asked once."""
+    SMs) of one sweep kernel on one card, from the kernel's shape query
+    in the library: fixed for given arguments, so asked once."""
     shape = (_INT * 3)()
     with torch.cuda.device(device):
         err = getattr(load(), shape_fn)(*args, shape)
@@ -332,9 +345,10 @@ def _plan_sweep(
     splits: int | None,
     *select: int,
 ) -> _SweepPlan:
-    """The grid of one launch of a packed-sweep kernel: the block shape
-    for these operands (`select` holds the fused kernel's further
-    arguments), and the caller's splits or `sweep_splits` for this card."""
+    """The grid of one launch of a sweep kernel: the block shape for these
+    operands (`select` holds the kernel's further arguments: the fused
+    kernel's geometry, the lane scan's slots), and the caller's splits or
+    `sweep_splits` for this card."""
     batch, dim = queries.shape
     num_tiles = corpus.shape[0] // corpus_tile
     block_rows, block_lanes, blocks_per_sm, sm_count = _block_shape(
@@ -491,6 +505,50 @@ def threshold_select(
     return keys, meta
 
 
+# the lane scan keeps a slot's tile index in 16 bits
+MAX_LANE_SCAN_TILES = 1 << 16
+
+
+def _check_lane_scan(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    scales: torch.Tensor | None,
+    corpus_tile: int,
+    slots: int,
+) -> tuple[int, int, int]:
+    """Argument checks of the lane-max scan; returns (batch, dim,
+    num_tiles)."""
+    batch, dim, num_tiles = _check_scan(
+        "lane_max_scan", queries, corpus, scales, corpus_tile
+    )
+    if slots not in (1, 2):
+        msg = f"slots must be 1 or 2, got {slots}"
+        raise ValueError(msg)
+    if num_tiles > MAX_LANE_SCAN_TILES:
+        msg = (
+            f"lane_max_scan takes at most {MAX_LANE_SCAN_TILES} corpus "
+            f"tiles, got {num_tiles}"
+        )
+        raise ValueError(msg)
+    return batch, dim, num_tiles
+
+
+def lane_max_scan_splits(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    *,
+    corpus_tile: int,
+    slots: int = 1,
+    **_ignored,
+) -> int:
+    """The corpus splits that `lane_max_scan` chooses for these operands
+    on this card (its other arguments are accepted and ignored)."""
+    _check_lane_scan(queries, corpus, None, corpus_tile, slots)
+    return _plan_sweep(
+        "xfmr_lane_max_scan_shape", queries, corpus, corpus_tile, None, slots
+    ).splits
+
+
 def lane_max_scan(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -501,15 +559,15 @@ def lane_max_scan(
     track_discards: bool = False,
     true_num_items: int | None = None,
     lane_shuffle: int = 0,
+    splits: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """Launch the f32 lane-max scan kernel (same arguments and results as
-    `ops.topk_f32.lane_max_scan_plain`)."""
-    batch, dim, num_tiles = _check_scan(
-        "lane_max_scan", queries, corpus, scales, corpus_tile
+    `ops.topk_f32.lane_max_scan_plain`). `splits` overrides how many ways
+    the corpus tiles are split over blocks (default: `sweep_splits`); the
+    result does not depend on it."""
+    batch, dim, num_tiles = _check_lane_scan(
+        queries, corpus, scales, corpus_tile, slots
     )
-    if slots not in (1, 2):
-        msg = f"slots must be 1 or 2, got {slots}"
-        raise ValueError(msg)
     device = queries.device
     width = slots * corpus_tile
     vals = torch.empty((batch, width), dtype=torch.float32, device=device)
@@ -523,6 +581,24 @@ def lane_max_scan(
     if batch == 0:
         return vals, pos, dmax
     lib = load()
+    plan = _plan_sweep(
+        "xfmr_lane_max_scan_shape", queries, corpus, corpus_tile, splits,
+        slots,
+    )
+    work_vals = work_tiles = arrivals = None
+    if plan.splits > 1:
+        # the (value, tile) slots of every split, and one arrival counter
+        # per (row tile, lane chunk)
+        work_vals = torch.empty(
+            (plan.splits, batch, width), dtype=torch.float32, device=device
+        )
+        work_tiles = torch.empty(
+            (plan.splits, batch, width), dtype=torch.int32, device=device
+        )
+        arrivals = torch.zeros(
+            plan.row_tiles * plan.lane_chunks, dtype=torch.int32,
+            device=device,
+        )
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.xfmr_lane_max_scan(
         queries.data_ptr(),
@@ -531,6 +607,9 @@ def lane_max_scan(
         vals.data_ptr(),
         pos.data_ptr(),
         None if dmax is None else dmax.data_ptr(),
+        None if work_vals is None else work_vals.data_ptr(),
+        None if work_tiles is None else work_tiles.data_ptr(),
+        None if arrivals is None else arrivals.data_ptr(),
         batch,
         dim,
         num_tiles,
@@ -539,6 +618,7 @@ def lane_max_scan(
         -1 if true_num_items is None else int(true_num_items),
         int(lane_shuffle),
         1 if track_discards else 0,
+        plan.splits,
         _Q_KINDS[queries.dtype],
         _CORPUS_KINDS[corpus.dtype],
         stream,
@@ -555,6 +635,20 @@ _COUNT_PAIRS = {
 }
 
 
+def count_at_least_splits(
+    queries: torch.Tensor, corpus: torch.Tensor, *, corpus_tile: int,
+    **_ignored,
+) -> int:
+    """The corpus splits that `count_at_least` chooses for these operands
+    on this card (its other arguments are accepted and ignored)."""
+    _check_scan(
+        "count_at_least", queries, corpus, None, corpus_tile, _COUNT_PAIRS
+    )
+    return _plan_sweep(
+        "xfmr_count_at_least_shape", queries, corpus, corpus_tile, None
+    ).splits
+
+
 def count_at_least(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -562,9 +656,12 @@ def count_at_least(
     *,
     corpus_tile: int,
     true_num_items: int | None = None,
+    splits: int | None = None,
 ) -> torch.Tensor:
     """Launch the count kernel (same arguments and result as
-    `ops.topk_f32.count_at_least_plain`)."""
+    `ops.topk_f32.count_at_least_plain`). `splits` as in `lane_max_scan`:
+    every split adds its counts with integer atomics, so the result does
+    not depend on it."""
     batch, dim, num_tiles = _check_scan(
         "count_at_least", queries, corpus, None, corpus_tile, _COUNT_PAIRS
     )
@@ -577,6 +674,9 @@ def count_at_least(
     if batch == 0:
         return counts
     lib = load()
+    plan = _plan_sweep(
+        "xfmr_count_at_least_shape", queries, corpus, corpus_tile, splits
+    )
     stream = torch.cuda.current_stream(queries.device).cuda_stream
     err = lib.xfmr_count_at_least(
         queries.data_ptr(),
@@ -588,6 +688,7 @@ def count_at_least(
         num_tiles,
         corpus_tile,
         -1 if true_num_items is None else int(true_num_items),
+        plan.splits,
         _Q_KINDS[queries.dtype],
         _CORPUS_KINDS[corpus.dtype],
         stream,

@@ -15,11 +15,15 @@ Two functions launch kernels: `lane_max_scan` (`csrc/lane_max_scan.cu`)
 and `count_at_least` (`csrc/count_at_least.cu`). Each sends a CPU tensor
 to its plain PyTorch version (`lane_max_scan_plain`,
 `count_at_least_plain`, same module) and a CUDA tensor to its kernel;
-nothing falls back. Selections go through `topk_stable`, as in
-`ops/topk.py`.
+nothing falls back. The lane scan kernel splits the corpus tiles over
+blocks at small batches and merges the parts in tile order;
+`lane_max_scan_split_plain` is the plain version of that. Selections go
+through `topk_stable`, as in `ops/topk.py`.
 """
 
 from __future__ import annotations
+
+from collections.abc import Sequence
 
 import torch
 
@@ -53,6 +57,56 @@ def _scan_tiles(
     return corpus_tile
 
 
+def _lane_scan_tiles(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    scales: torch.Tensor | None,
+    tile_begin: int,
+    tile_end: int,
+    *,
+    corpus_tile: int,
+    slots: int = 1,
+    track_discards: bool = False,
+    true_num_items: int | None = None,
+    lane_shuffle: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None, torch.Tensor]:
+    """The strict-`>` slot contest over corpus tiles [tile_begin,
+    tile_end): (vals, pos, dmax or None) as `lane_max_scan_plain` returns
+    them, and (B, ct) `first`: with two slots, the position of the first
+    item that held slot 2's value (slot 1's when an item tied with slot 1
+    took slot 2), which the merge of a split needs."""
+    batch = queries.shape[0]
+    ct = corpus_tile
+    device = queries.device
+    q32 = queries.float()
+    lanes = torch.arange(ct, dtype=torch.int32, device=device)
+    vals = [
+        torch.full((batch, ct), NEG_INF, dtype=torch.float32, device=device)
+        for _ in range(slots)
+    ]
+    pos = [
+        torch.zeros((batch, ct), dtype=torch.int32, device=device)
+        for _ in range(slots)
+    ]
+    first = [torch.zeros((batch, ct), dtype=torch.int32, device=device)]
+    dropped = torch.full((batch, ct), NEG_INF, device=device)
+    for step in range(tile_begin, tile_end):
+        tile = corpus[step * ct : (step + 1) * ct].float()
+        scores = q32 @ tile.T
+        if scales is not None:
+            scores = scores * scales[step * ct : (step + 1) * ct]
+        shift = (step * lane_shuffle) % ct
+        if shift:
+            # np.roll semantics: lane l holds tile column (l - shift) % ct
+            scores = torch.roll(scores, shift, 1)
+        positions = (step * ct + (lanes - shift) % ct).expand(batch, -1)
+        if true_num_items is not None:
+            scores = torch.where(positions < true_num_items, scores, NEG_INF)
+        dropped = _feed_slot(vals, pos, dropped, scores, positions, first)
+    dmax = dropped.amax(dim=1) if track_discards else None
+    return torch.cat(vals, dim=1), torch.cat(pos, dim=1), dmax, first[0]
+
+
 def lane_max_scan_plain(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -68,55 +122,136 @@ def lane_max_scan_plain(
 
     Tile loop with an f32 matmul of the bf16/int8/f32 inputs, `torch.roll`
     for the lane shuffle, padding to -inf, and the strict-`>` slot
-    contest in ascending tile order. Returns (vals (B, slots*ct) f32,
-    pos (B, slots*ct) i32, dmax (B,) f32 or None); empty slots are
-    (-inf, 0).
+    contest in ascending tile order (`_lane_scan_tiles` over every tile).
+    Returns (vals (B, slots*ct) f32, pos (B, slots*ct) i32, dmax (B,) f32
+    or None); empty slots are (-inf, 0).
     """
-    batch = queries.shape[0]
-    ct = corpus_tile
-    device = queries.device
-    q32 = queries.float()
-    lanes = torch.arange(ct, dtype=torch.int32, device=device)
-    vals = [
-        torch.full((batch, ct), NEG_INF, dtype=torch.float32, device=device)
-        for _ in range(slots)
-    ]
-    pos = [
-        torch.zeros((batch, ct), dtype=torch.int32, device=device)
-        for _ in range(slots)
-    ]
-    dmax = None
-    if track_discards:
-        dmax = torch.full(
-            (batch,), NEG_INF, dtype=torch.float32, device=device
+    return _lane_scan_tiles(
+        queries,
+        corpus,
+        scales,
+        0,
+        corpus.shape[0] // corpus_tile,
+        corpus_tile=corpus_tile,
+        slots=slots,
+        track_discards=track_discards,
+        true_num_items=true_num_items,
+        lane_shuffle=lane_shuffle,
+    )[:3]
+
+
+def _feed_slot(
+    best_v: list[torch.Tensor],
+    best_p: list[torch.Tensor],
+    dropped: torch.Tensor,
+    v: torch.Tensor,
+    p: torch.Tensor,
+    first: list[torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """One (value, position) per (row, lane) enters the slots `best_v`,
+    `best_p` (updated in place) under the strict `>`, the value displaced
+    from slot 1 going on to slot 2; returns `dropped` raised by what fell
+    out. `first[0]`, with two slots, follows the position of the first
+    item that held slot 2's value: slot 1's when an item tied with slot 1
+    takes slot 2, else the item that takes it."""
+    beats1 = v > best_v[0]
+    contender = torch.where(beats1, best_v[0], v)
+    contender_pos = torch.where(beats1, best_p[0], p)
+    at_least1 = v >= best_v[0]
+    old_p1 = best_p[0]
+    best_v[0] = torch.where(beats1, v, best_v[0])
+    best_p[0] = torch.where(beats1, p, best_p[0])
+    discarded = contender
+    if len(best_v) == 2:
+        beats2 = contender > best_v[1]
+        discarded = torch.where(beats2, best_v[1], contender)
+        best_v[1] = torch.where(beats2, contender, best_v[1])
+        best_p[1] = torch.where(beats2, contender_pos, best_p[1])
+        if first is not None:
+            first[0] = torch.where(
+                beats2, torch.where(at_least1, old_p1, p), first[0]
+            )
+    return torch.maximum(dropped, discarded)
+
+
+def merge_lane_slots_plain(
+    vals: Sequence[torch.Tensor],
+    pos: Sequence[torch.Tensor],
+    first: Sequence[torch.Tensor],
+    dmax: Sequence[torch.Tensor | None],
+    *,
+    slots: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Plain version of the kernel's tile-ordered merge of a corpus split
+    over blocks.
+
+    `vals[s]`, `pos[s]` (B, slots*ct), `first[s]` (B, ct) and `dmax[s]`
+    (B,) are what `_lane_scan_tiles` returns for the s-th range of tiles,
+    the ranges in ascending order. The strict-`>` contest keeps ties by
+    history: slot 2 holds the second item of its value when two of them
+    came before slot 1's, else the first. So each part's slots alone do
+    not decide ties across parts; with the first item of slot 2's value
+    they do. Each part feeds, in ascending position, that first item
+    (where slot 2 holds a later one of a value below slot 1's), then its
+    slots, into the same contest; this gives the unsplit slots, ties
+    included. The row's discard-max is the largest partial discard-max or
+    value that this merge drops."""
+    ct = vals[0].shape[1] // slots
+    best_v = [torch.full_like(vals[0][:, :ct], NEG_INF) for _ in range(slots)]
+    best_p = [torch.zeros_like(pos[0][:, :ct]) for _ in range(slots)]
+    dropped = torch.full_like(best_v[0], NEG_INF)
+    for part_v, part_p, part_f in zip(vals, pos, first, strict=True):
+        v1, p1 = part_v[:, :ct], part_p[:, :ct]
+        if slots == 1:
+            dropped = _feed_slot(best_v, best_p, dropped, v1, p1)
+            continue
+        v2, p2 = part_v[:, ct:], part_p[:, ct:]
+        earlier = (v2 < v1) & (part_f != p2)
+        dropped = _feed_slot(
+            best_v, best_p, dropped, torch.where(earlier, v2, NEG_INF), part_f
         )
-    for step in range(corpus.shape[0] // ct):
-        tile = corpus[step * ct : (step + 1) * ct].float()
-        scores = q32 @ tile.T
-        if scales is not None:
-            scores = scores * scales[step * ct : (step + 1) * ct]
-        shift = (step * lane_shuffle) % ct
-        if shift:
-            # np.roll semantics: lane l holds tile column (l - shift) % ct
-            scores = torch.roll(scores, shift, 1)
-        positions = (step * ct + (lanes - shift) % ct).expand(batch, -1)
-        if true_num_items is not None:
-            scores = torch.where(positions < true_num_items, scores, NEG_INF)
-        beats1 = scores > vals[0]
-        # value and position displaced into the next contest
-        contender = torch.where(beats1, vals[0], scores)
-        contender_pos = torch.where(beats1, pos[0], positions)
-        vals[0] = torch.where(beats1, scores, vals[0])
-        pos[0] = torch.where(beats1, positions, pos[0])
-        discarded = contender
-        if slots == 2:
-            beats2 = contender > vals[1]
-            discarded = torch.where(beats2, vals[1], contender)
-            vals[1] = torch.where(beats2, contender, vals[1])
-            pos[1] = torch.where(beats2, contender_pos, pos[1])
-        if dmax is not None:
-            dmax = torch.maximum(dmax, discarded.amax(dim=1))
-    return torch.cat(vals, dim=1), torch.cat(pos, dim=1), dmax
+        swap = p2 < p1
+        dropped = _feed_slot(
+            best_v, best_p, dropped, torch.where(swap, v2, v1),
+            torch.where(swap, p2, p1),
+        )
+        dropped = _feed_slot(
+            best_v, best_p, dropped, torch.where(swap, v1, v2),
+            torch.where(swap, p1, p2),
+        )
+    merged_v, merged_p = torch.cat(best_v, dim=1), torch.cat(best_p, dim=1)
+    if dmax[0] is None:
+        return merged_v, merged_p, None
+    return merged_v, merged_p, torch.maximum(
+        torch.stack(list(dmax)).amax(dim=0), dropped.amax(dim=1)
+    )
+
+
+def lane_max_scan_split_plain(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    scales: torch.Tensor | None,
+    splits: int,
+    *,
+    corpus_tile: int,
+    slots: int = 1,
+    **geometry,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Plain version of the lane-max scan kernel with its corpus tiles
+    split `splits` ways: the contest over each contiguous range of tiles
+    (the kernel's own ranges), then `merge_lane_slots_plain`. Equal to
+    `lane_max_scan_plain` bit for bit, whatever `splits`."""
+    num_tiles = corpus.shape[0] // corpus_tile
+    parts = [
+        _lane_scan_tiles(
+            queries, corpus, scales, num_tiles * s // splits,
+            num_tiles * (s + 1) // splits, corpus_tile=corpus_tile,
+            slots=slots, **geometry,
+        )
+        for s in range(splits)
+    ]
+    vals, pos, dmax, first = zip(*parts, strict=True)
+    return merge_lane_slots_plain(vals, pos, first, dmax, slots=slots)
 
 
 def lane_max_scan(
