@@ -154,21 +154,60 @@ def test_split_sweep_is_the_same_run_to_run(card):
         assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
-@pytest.mark.parametrize("width", [384, 3072, 4096])
-def test_threshold_select_matches_plain(card, width):
-    rng = np.random.default_rng(width)
-    f = rng.uniform(1.25, 1.75, size=(33, width)).astype(np.float32)
-    pool = torch.from_numpy(f.view(np.int32) & ~np.int32(0xFF))
-    for qb, shared in ((0, False), (12, True)):
-        got = kernels.threshold_select(
-            pool.to(card), 100, capacity=128, quantum_bits=qb,
-            shared_exponent=shared,
-        )
-        want = topk.select_topk_keys_plain(
-            pool, 100, capacity=128, quantum_bits=qb, shared_exponent=shared
-        )
-        torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
-        torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+def select_pool(seed, batch, width):
+    """Packed-key-like rows (bitcast floats in [1.25, 1.75), low 8 bits
+    cleared), the first rows replaced by the select's edge cases."""
+    rng = np.random.default_rng(seed)
+
+    def keys(rows):
+        f = rng.uniform(1.25, 1.75, size=(rows, width)).astype(np.float32)
+        return f.view(np.int32) & ~np.int32(0xFF)
+
+    pool = keys(batch)
+    extra = keys(4)
+    edges = []
+    # 300 lanes tied on a key above the rest: ties beyond capacity
+    row = extra[0].copy()
+    row[rng.choice(width, size=min(300, width), replace=False)] = (
+        np.float32(1.74).view(np.int32)
+    )
+    edges.append(row)
+    edges.append(np.zeros(width, dtype=np.int32))  # all zero
+    row = np.zeros(width, dtype=np.int32)  # fewer than k non-zero keys
+    row[rng.choice(width, size=37, replace=False)] = extra[1, :37]
+    edges.append(row)
+    # fewer than k keys share the max's exponent, the rest one below
+    row = (extra[2] & ((1 << 23) - 1)) | np.int32(126 << 23)
+    row[rng.choice(width, size=20, replace=False)] = extra[3, :20]
+    edges.append(row)
+    for i, row in enumerate(edges[:batch]):
+        pool[i] = row
+    return torch.from_numpy(pool)
+
+
+@pytest.mark.parametrize("batch", [1, 33, 128, 4096])
+@pytest.mark.parametrize("width", [384, 3072, 4096, 16384])
+def test_threshold_select_matches_plain(card, width, batch):
+    """Raw outputs (keys and meta in rank order) identical to the plain
+    version, at the retry and full batch widths and the widest pool."""
+    pool = select_pool(width + batch, batch, width).to(card)
+    for qb, shared in ((0, False), (10, True), (12, True)):
+        opts = dict(capacity=128, quantum_bits=qb, shared_exponent=shared)
+        got = kernels.threshold_select(pool, 100, **opts)
+        want = topk.select_topk_keys_plain(pool, 100, **opts)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_threshold_select_spreads_small_batches(card):
+    """A retry's 128 rows run a warp on each of 128 SMs; the full batch
+    fills blocks of warps, no more blocks than the card holds at a time."""
+    retry = torch.zeros((128, 3072), dtype=torch.int32, device=card)
+    full = torch.zeros((4096, 3072), dtype=torch.int32, device=card)
+    assert kernels.threshold_select_grid(retry) == (1, 128)
+    block_warps, blocks_per_sm, sms = kernels._select_shape(
+        full.device.index, 3072)
+    warps, blocks = kernels.threshold_select_grid(full)
+    assert warps == block_warps > 1 and blocks <= sms * blocks_per_sm
 
 
 def scan_tensors(card, seed, batch, num_items, dim, int8=False, f32=False):

@@ -16,8 +16,9 @@
 //
 // What bounds it on this card. As packed_scan.cu: the contest's integer
 // operations on the CUDA cores, the dot being on the tensor cores. The
-// select adds (searched bits + 3) passes over a row's pool in shared
-// memory, for a row tile's 64 rows in one block.
+// select adds four passes over a row's pool in shared memory (the row
+// max, one histogram for each of two radix digits, the compaction), for
+// a row tile's 64 rows in one block.
 //
 // What the design does about it. A row's merged pool (3*ct/2 keys, 12
 // KiB at ct=2048) fits shared memory, but the slot buffers of a 64-row
@@ -61,7 +62,7 @@ struct FusedSelectArgs {
   int merge_levels;  // after clamping
   int keep3;         // one keep-3 round instead of keep-2 rounds
   int pool_width;
-  int pool_ints;   // a warp's merge space: pool_width, or ct for keep-2
+  int pool_ints;   // a warp's merge space (see select_args)
   int tail_warps;  // rows the tail selects at a time, one warp each
 };
 
@@ -116,16 +117,16 @@ __global__ void __launch_bounds__(Sweep::kThreads, Sweep::kMinBlocks)
   if (!arrives_last(&arrivals[blockIdx.x], gridDim.y, &is_last)) return;
 
   // The tail: a warp per row, `tail_warps` rows at a time, each warp in
-  // a region of its own ([pool | keys | meta]) with warp barriers only.
+  // a region of its own ([pool | histogram], the pool in whole steps of
+  // 128 keys, select_common.cuh) with warp barriers only.
   // A row's slots are read from the workspace past L1 (other blocks
   // wrote them during this launch) straight into the first merge.
   const int warp = tid >> 5;
   const int lane = tid & 31;
   if (warp >= s.tail_warps) return;
   int* pool = reinterpret_cast<int*>(smem) +
-              static_cast<size_t>(warp) * (s.pool_ints + 2 * s.capacity);
-  int* keys_s = pool + s.pool_ints;   // [capacity]
-  int* meta_s = keys_s + s.capacity;  // [capacity]
+              static_cast<size_t>(warp) * (s.pool_ints + kHistInts);
+  int* hist = pool + s.pool_ints;  // [kHistInts]
   const int rows = min(Sweep::kRows, a.batch - row0);
   const int half = ct >> 1;
   for (int r = warp; r < rows; r += s.tail_warps) {
@@ -194,21 +195,16 @@ __global__ void __launch_bounds__(Sweep::kThreads, Sweep::kMinBlocks)
     merged_out = __reduce_max_sync(0xffffffffu, merged_out);
     if (lane == 0) atomicMax(&dmax[row], merged_out);
 
-    int local_max = 0;
-    for (int i = lane; i < s.pool_width; i += 32) {
-      local_max = max(local_max, pool[i]);
-    }
-    select_row<32>(pool, local_max, s.pool_width, s.k, s.capacity,
-                   s.quantum_bits, /*shared_exponent=*/1, keys_s, meta_s,
-                   /*scratch=*/nullptr, out_keys + row * s.capacity,
-                   out_meta + row * s.capacity);
+    select_row(RowView{pool, s.pool_width}, s.k, s.capacity,
+               s.quantum_bits, /*shared_exponent=*/1, hist,
+               out_keys + row * s.capacity, out_meta + row * s.capacity);
   }
 }
 
 // Shared memory of the tail for `warps` rows at a time.
 inline size_t tail_bytes(const FusedSelectArgs& s, int warps) {
   return sizeof(int) * warps *
-         (static_cast<size_t>(s.pool_ints) + 2 * static_cast<size_t>(s.capacity));
+         (static_cast<size_t>(s.pool_ints) + static_cast<size_t>(kHistInts));
 }
 
 // The select's arguments as the kernel takes them. The tail selects as
@@ -217,10 +213,11 @@ template <typename Sweep>
 FusedSelectArgs select_args(int corpus_tile, int k, int capacity,
                             int quantum_bits, int merge_levels, int keep3,
                             int pool_width) {
-  // keep-2 merges run in two arrays of ct/2 before the pool is formed
+  // keep-2 merges run in two arrays of ct/2 before the pool is formed;
+  // the select reads whole steps of 128 keys
   const int pool_ints =
-      !keep3 && merge_levels > 0 && corpus_tile > pool_width ? corpus_tile
-                                                             : pool_width;
+      max(!keep3 && merge_levels > 0 ? corpus_tile : pool_width,
+          kQuadKeys * row_steps(pool_width));
   FusedSelectArgs s = {k,     capacity,   quantum_bits, merge_levels,
                        keep3, pool_width, pool_ints,    /*tail_warps=*/0};
   const int fit = static_cast<int>(kTailBudget / tail_bytes(s, 1));

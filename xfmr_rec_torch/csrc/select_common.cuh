@@ -1,199 +1,249 @@
-// The per-row threshold select, shared by threshold_select.cu (one
-// block per pool row) and packed_scan_select.cu (the epilogue of the
-// fused kernel), so both run the same code.
+// The per-row threshold select, run by one warp over one row in shared
+// memory: shared by threshold_select.cu (a warp per pool row) and the
+// tail of packed_scan_select.cu (a warp per merged row), so both run the
+// same code. No block barrier anywhere: reductions are warp votes and
+// shuffles, the histogram is the warp's own.
 //
-// For one row of `width` non-negative int32 keys in shared memory: tau,
-// the k-th largest key at quantum granularity, by a bit search (from bit
-// 22 seeded with the row max's exponent bits, or from bit 30, down to
-// quantum_bits: per bit, count keys >= tau | bit and keep the bit when at
-// least k do). Then every key above the tau quantum is kept, and
-// tau-quantum ties in lane order up to `capacity` in all. Kept keys are
-// written at their rank (lane order) with meta = lane + 1; empty slots
-// are 0.
+// For one row of `width` non-negative int32 keys: tau, the k-th largest
+// key at quantum granularity, seeded with the row max's exponent bits
+// (shared_exponent) or 0. The searched bits run from 22 (or 30) down to
+// quantum_bits; the search takes them in digits of at most kRadixBits,
+// from the top (13 bits on the main path: two passes, not 13). Per digit,
+// a histogram of the digit over the keys that carry tau's bits above it,
+// then the highest bin whose suffix count reaches the keys still needed.
+// That equals the bit search of the plain version (a bit is kept when at
+// least k keys are >= tau | bit): both give max(seed, the k-th key with
+// the bits below the quantum cleared), and
+// tests/test_torch_select_radix.py holds the two equal. The suffix
+// counts above the chosen bins add up to n_gt, the keys at or above the
+// next quantum, so the compaction is one pass: every key above the tau
+// quantum, then tau-quantum ties in lane order up to `capacity`, each
+// written at its rank (lane order) with meta = lane + 1; empty slots 0.
+//
+// No pass branches per key: on an H100 a branch a key (in SASS, a
+// BSSY/BSYNC region around each key's add or store) made the warp
+// reconverge once a key, at about a hundred cycles each. The histogram
+// add is an unconditional `atomicAdd(+1)`, which the card aggregates
+// over the lanes that hit one address (keys outside the prefix all go to
+// a spare bin); kept keys are written with predicated stores; a step's
+// four 16-byte reads go out together.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace xfmr {
 
-constexpr int kSelectThreads = 256;
-constexpr int kSelectWarps = kSelectThreads / 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kRadixBits = 8;
+constexpr int kRadixBins = 1 << kRadixBits;
+// ints of a warp's histogram: the bins, then the spare bin (padded so a
+// region that follows stays 16-byte aligned)
+constexpr int kHistInts = kRadixBins + 4;
+constexpr int kQuadKeys = 128;  // keys of one warp step: four a thread
 
-// Scratch of one select: reduction and scan cells of the group of kT
-// threads that runs it, sized for the largest group (kT / 32 cells are
-// used).
-struct SelectScratch {
-  int red[kSelectWarps];
-  int scan[kSelectWarps];
+// Steps of 128 keys in a row of `width` keys.
+__host__ __device__ inline int row_steps(int width) {
+  return (width + kQuadKeys - 1) / kQuadKeys;
+}
+
+// A row of `width` keys in lane order in shared memory, at a 16-byte
+// aligned address, in a buffer of row_steps(width) * 128 ints: every
+// thread reads every step, past the row's end too, so no read waits on a
+// branch. `each(f)` calls f(v, i, n) for each step: v[0..3] the keys at
+// lanes i..i+3 (i = step * 128 + 4 * thread), of which those with j < n
+// are in the row (n may be negative or above 4); the same number of
+// calls in every thread of the warp, so f may use warp collectives.
+struct RowView {
+  const int* keys;
+  int width;
+
+  template <typename F>
+  __device__ __forceinline__ void each(F&& f) const {
+    const int i0 = 4 * (threadIdx.x & 31);
+    const int steps = row_steps(width);
+    for (int s0 = 0; s0 < steps; s0 += 4) {
+      int4 w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int s = min(s0 + u, steps - 1);
+        w[u] = *reinterpret_cast<const int4*>(keys + s * kQuadKeys + i0);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (s0 + u < steps) {  // the same in every thread
+          const int i = (s0 + u) * kQuadKeys + i0;
+          const int v[4] = {w[u].x, w[u].y, w[u].z, w[u].w};
+          f(v, i, width - i);
+        }
+      }
+    }
+  }
 };
 
-// A select is run by a group of kT threads: a whole block of kT threads
-// (kT a multiple of 32), or, with kT = 32, one warp of a larger block,
-// each warp with a row and a scratch of its own.
-template <int kT>
-__device__ __forceinline__ void group_sync() {
-  if (kT == 32) {
-    __syncwarp();
-  } else {
-    __syncthreads();
-  }
+// Stores v at *p where `pred` holds, predicated rather than branched.
+__device__ __forceinline__ void store_if(bool pred, int* p, int v) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.u32 q, %0, 0;\n @q st.global.u32 [%1], %2;\n}"
+      ::"r"(static_cast<unsigned>(pred)), "l"(p), "r"(v)
+      : "memory");
 }
 
-template <int kT = kSelectThreads>
-__device__ __forceinline__ int block_sum(int v, int* red) {
-  v = __reduce_add_sync(0xffffffffu, v);
-  if (kT == 32) return v;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // red[] free from the previous call
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
-  int total = 0;
-#pragma unroll
-  for (int w = 0; w < kT / 32; ++w) total += red[w];
-  return total;
-}
-
-template <int kT = kSelectThreads>
-__device__ __forceinline__ int block_max(int v, int* red) {
-  v = __reduce_max_sync(0xffffffffu, v);
-  if (kT == 32) return v;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
-  int total = red[0];
-#pragma unroll
-  for (int w = 1; w < kT / 32; ++w) total = max(total, red[w]);
-  return total;
-}
-
-// Step 2 of the select for a single warp: the kept keys to their ranks.
-// The warp takes 32 consecutive lanes at a time, so the shared-memory
-// reads do not collide (a contiguous run per thread would put all 32 on
-// one bank), and ballots count the kept keys of the lanes before.
-__device__ __forceinline__ void place_kept_warp(
-    const int* __restrict__ row_s, int width, int floor_key, int gt_key,
-    int capacity, int* __restrict__ keys_s, int* __restrict__ meta_s) {
+// One digit of the search: among the keys whose bits from `top` up equal
+// `prefix`, the histogram of bits [shift, top) in the warp's `hist`
+// (kHistInts ints). Returns the highest bin whose suffix count reaches
+// `need`, with `above` the count of the bins over it; -1 when the keys
+// with the prefix are fewer than `need`.
+__device__ __forceinline__ int radix_digit(const RowView& row,
+                                           unsigned prefix, int top,
+                                           int shift, int need, int* hist,
+                                           int& above) {
   const int lane = threadIdx.x & 31;
-  const unsigned before = (1u << lane) - 1;
-  int above = 0;
-  for (int i = lane; i < width; i += 32) above += row_s[i] >= gt_key;
-  const int budget = capacity - __reduce_add_sync(0xffffffffu, above);
-  int gt_seen = 0;
-  int tie_seen = 0;
-#pragma unroll 4
-  for (int base = 0; base < width; base += 32) {
-    const int i = base + lane;
-    const int v = i < width ? row_s[i] : 0;  // 0 is below every floor
-    const bool gt = v >= gt_key;
-    const bool tie = !gt && v >= floor_key;
-    const unsigned gt_mask = __ballot_sync(0xffffffffu, gt);
-    const unsigned tie_mask = __ballot_sync(0xffffffffu, tie);
-    const int tie_rank = tie_seen + __popc(tie_mask & before);
-    if (gt || (tie && tie_rank < budget)) {
-      const int rank =
-          gt_seen + __popc(gt_mask & before) + min(tie_rank, budget);
-      keys_s[rank] = v;
-      meta_s[rank] = i + 1;
+  const int bins = 1 << (top - shift);
+  const unsigned mask = bins - 1;
+  // lane l owns bins [first, last): it zeroes them and scans them
+  const int per = (bins + 31) >> 5;
+  const int first = min(lane * per, bins);
+  const int last = min(first + per, bins);
+  for (int b = first; b < last; ++b) hist[b] = 0;
+  __syncwarp();
+  row.each([&](const int (&v)[4], int, int n) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned u = static_cast<unsigned>(v[j]);
+      const bool in = (j < n) & ((u >> top) == prefix);
+      atomicAdd(hist + (in ? (u >> shift) & mask : kRadixBins), 1);
     }
-    gt_seen += __popc(gt_mask);
-    tie_seen += __popc(tie_mask);
+  });
+  __syncwarp();
+  int mine = 0;
+  for (int b = first; b < last; ++b) mine += hist[b];
+  int suffix = mine;  // keys in the bins of this lane and the lanes above
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int n = __shfl_down_sync(kFullMask, suffix, off);
+    if (lane + off < 32) suffix += n;
   }
+  const unsigned reach = __ballot_sync(kFullMask, suffix >= need);
+  if (reach == 0) return -1;
+  const int owner = 31 - __clz(reach);
+  int found = 0;
+  int over = suffix - mine;
+  if (lane == owner) {
+    for (int b = last - 1; b >= first; --b) {
+      if (over + hist[b] >= need) {
+        found = b;
+        break;
+      }
+      over += hist[b];
+    }
+  }
+  above = __shfl_sync(kFullMask, over, owner);
+  return __shfl_sync(kFullMask, found, owner);
 }
 
-// Called by all kT threads of a group (the result does not depend on
-// kT). `row_s` [width] holds the row, `local_max` this thread's share of
-// the row max (any split), `keys_s` and `meta_s` [capacity] are shared
-// scratch; the function
-// zeroes them itself. Writes dst_keys and dst_meta [capacity] in global
-// memory; a single warp (kT = 32) needs no `scratch`. Ends with the
-// scratch still being read: put a group_sync<kT>() before reusing row_s,
-// keys_s or meta_s.
-template <int kT = kSelectThreads>
-__device__ __forceinline__ void select_row(
-    const int* row_s, int local_max, int width, int k, int capacity,
-    int quantum_bits, int shared_exponent, int* keys_s, int* meta_s,
-    SelectScratch* scratch, int* __restrict__ dst_keys,
-    int* __restrict__ dst_meta) {
-  const int tid = threadIdx.x % kT;
-  for (int i = tid; i < capacity; i += kT) {
-    keys_s[i] = 0;
-    meta_s[i] = 0;
-  }
-  group_sync<kT>();
+// Called by all 32 threads of a warp with the same row; `hist`
+// [kHistInts] is the warp's workspace in shared memory; writes dst_keys and
+// dst_meta [capacity] in global memory. Ends with the row and `hist`
+// still being read: put a __syncwarp() before reusing them.
+__device__ __forceinline__ void select_row(const RowView& row, int k,
+                                           int capacity, int quantum_bits,
+                                           int shared_exponent, int* hist,
+                                           int* __restrict__ dst_keys,
+                                           int* __restrict__ dst_meta) {
+  const int lane = threadIdx.x & 31;
 
-  // 1. the k-th largest key, by bits
-  int* red = nullptr;  // a single warp reduces in registers
-  if constexpr (kT != 32) red = scratch->red;
+  // 1. tau, by digits
   int tau = 0;
-  int high_bit = 30;
+  int top = 31;  // one above the highest searched bit
   if (shared_exponent) {
-    tau = block_max<kT>(local_max, red) & ~((1 << 23) - 1);
-    high_bit = 22;
+    int row_max[2] = {0, 0};
+    row.each([&](const int (&v)[4], int, int n) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        row_max[j & 1] = max(row_max[j & 1], j < n ? v[j] : 0);
+      }
+    });
+    tau = __reduce_max_sync(kFullMask, max(row_max[0], row_max[1])) &
+          ~((1 << 23) - 1);
+    top = 23;
   }
-  for (int bit = high_bit; bit >= quantum_bits; --bit) {
-    const int cand = tau | (1 << bit);
-    int count = 0;
-    for (int i = tid; i < width; i += kT) {
-      count += row_s[i] >= cand;
-    }
-    if (block_sum<kT>(count, red) >= k) tau = cand;
+  int need = k;
+  int n_gt = -1;  // keys >= tau + quantum, when the digits tell it
+  int above_all = 0;
+  while (top > quantum_bits) {
+    const int shift = max(top - kRadixBits, quantum_bits);
+    int above = 0;
+    const int bin = radix_digit(row, static_cast<unsigned>(tau) >> top, top,
+                                shift, need, hist, above);
+    if (bin < 0) break;  // first digit only: fewer than k keys >= seed
+    tau |= bin << shift;
+    need -= above;
+    above_all += above;
+    top = shift;
+    if (top == quantum_bits) n_gt = above_all;
   }
 
-  // 2. two-class keep set; ranks from one exclusive scan over lanes
+  // 2. the keep set: above the tau quantum, then ties up to capacity
   const int floor_key = max(tau, 1);
+  // int32 wrap-around, as the plain version's
   const int gt_key = static_cast<int>(static_cast<unsigned>(floor_key) +
                                       (1u << quantum_bits));
-  if constexpr (kT == 32) {
-    place_kept_warp(row_s, width, floor_key, gt_key, capacity, keys_s, meta_s);
-  } else {
-    const int per = (width + kT - 1) / kT;
-    const int begin = min(tid * per, width);
-    const int end = min(begin + per, width);
-    int local = 0;
-    for (int i = begin; i < end; ++i) {
-      const int v = row_s[i];
-      local += v >= gt_key ? (1 << 16) : (v >= floor_key ? 1 : 0);
-    }
-    // inclusive warp scan, then across warps
-    int incl = local;
+  if (tau < 1 || gt_key < floor_key || n_gt < 0) {
+    // the digits counted from tau, not from floor_key, or stopped early
+    int count = 0;
+    row.each([&](const int (&v)[4], int, int n) {
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int n = __shfl_up_sync(0xffffffffu, incl, off);
-      if ((tid & 31) >= off) incl += n;
-    }
-    group_sync<kT>();  // scan[] free from the previous row
-    if ((tid & 31) == 31) scratch->scan[tid >> 5] = incl;
-    group_sync<kT>();
-    int warp_base = 0;
-    int total = 0;
-#pragma unroll
-    for (int w = 0; w < kT / 32; ++w) {
-      if (w < (tid >> 5)) warp_base += scratch->scan[w];
-      total += scratch->scan[w];
-    }
-    int excl = warp_base + incl - local;
-    const int budget = capacity - (total >> 16);
-    for (int i = begin; i < end; ++i) {
-      const int v = row_s[i];
-      const int inc = v >= gt_key ? (1 << 16) : (v >= floor_key ? 1 : 0);
-      const int tie_rank = excl & 0xFFFF;
-      const int gt_rank = excl >> 16;
-      const bool gt = v >= gt_key;
-      const bool keep = gt || (v >= floor_key && tie_rank < budget);
-      if (keep) {
-        const int rank = gt_rank + min(tie_rank, budget);
-        keys_s[rank] = v;
-        meta_s[rank] = i + 1;
-      }
-      excl += inc;
-    }
+      for (int j = 0; j < 4; ++j) count += (j < n) & (v[j] >= gt_key);
+    });
+    n_gt = __reduce_add_sync(kFullMask, count);
   }
-  group_sync<kT>();
-  for (int i = tid; i < capacity; i += kT) {
-    dst_keys[i] = keys_s[i];
-    dst_meta[i] = meta_s[i];
+  const int budget = capacity - n_gt;
+
+  // 3. ranks in lane order from ballots: a step's keys before (lane, j)
+  // are the four of every lower lane and this lane's own before j
+  const unsigned lanes_before = (1u << lane) - 1;
+  int gt_seen = 0;  // class counts of the steps before
+  int tie_seen = 0;
+  row.each([&](const int (&v)[4], int i, int n) {
+    bool gt[4], tie[4];
+    unsigned gt_mask[4], tie_mask[4];
+    unsigned any = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      gt[j] = (j < n) & (v[j] >= gt_key);
+      tie[j] = (j < n) & !gt[j] & (v[j] >= floor_key);
+      gt_mask[j] = __ballot_sync(kFullMask, gt[j]);
+      tie_mask[j] = __ballot_sync(kFullMask, tie[j]);
+      any |= gt_mask[j] | tie_mask[j];
+    }
+    if (any == 0) return;  // the same in every thread
+    int g = gt_seen;
+    int t = tie_seen;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      g += __popc(gt_mask[j] & lanes_before);
+      t += __popc(tie_mask[j] & lanes_before);
+      gt_seen += __popc(gt_mask[j]);
+      tie_seen += __popc(tie_mask[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int rank = g + min(t, budget);
+      const bool keep =
+          (gt[j] | (tie[j] & (t < budget))) &
+          (static_cast<unsigned>(rank) < static_cast<unsigned>(capacity));
+      store_if(keep, dst_keys + rank, v[j]);
+      store_if(keep, dst_meta + rank, i + j + 1);
+      g += gt[j];
+      t += tie[j];
+    }
+  });
+  const int kept = min(capacity, gt_seen + max(0, min(tie_seen, budget)));
+  for (int s = kept + lane; s < capacity; s += 32) {
+    dst_keys[s] = 0;
+    dst_meta[s] = 0;
   }
 }
 

@@ -172,9 +172,12 @@ def load() -> ctypes.CDLL:
                 _VOID, _VOID, _VOID,  # pool, keys, meta
                 _INT, _INT, _INT, _INT,  # batch, width, k, capacity
                 _INT, _INT,  # quantum_bits, shared_exponent
+                _INT, _INT,  # block_warps, blocks
                 _VOID,  # stream
             ]
             lib.xfmr_threshold_select.restype = _INT
+            lib.xfmr_threshold_select_shape.argtypes = [_INT, _VOID]
+            lib.xfmr_threshold_select_shape.restype = _INT
             lib.xfmr_lane_max_scan.argtypes = [
                 _VOID, _VOID, _VOID,  # q, corpus, scales
                 _VOID, _VOID, _VOID,  # vals, pos, dmax
@@ -461,6 +464,47 @@ def packed_scan(
 MAX_SELECT_WIDTH = 16384
 
 
+def select_grid(
+    batch: int, sm_count: int, block_warps: int, blocks_per_sm: int
+) -> tuple[int, int]:
+    """(warps of a block, blocks) of a threshold-select launch: a warp
+    per row, persistent over rows when the batch outgrows the card.
+
+    A block holds as many rows as spread the batch evenly over the SMs,
+    at most `block_warps` (the block size at which an SM holds the most
+    warps), so a 128-row retry runs one warp on each of 128 SMs. The
+    grid is the blocks the batch needs, at most as many as the card
+    holds at a time (`blocks_per_sm` blocks of `block_warps` warps an SM,
+    from the occupancy API); each warp then takes every (all warps)-th
+    row.
+    """
+    per_block = max(1, min(block_warps, -(-batch // sm_count)))
+    resident = max(1, sm_count * block_warps * blocks_per_sm // per_block)
+    return per_block, max(1, min(-(-batch // per_block), resident))
+
+
+@functools.lru_cache(maxsize=None)
+def _select_shape(device: int, width: int) -> tuple[int, int, int]:
+    """(warps of a block at which an SM holds the most warps, such
+    blocks an SM holds, SMs) of the threshold-select kernel for rows of
+    `width` keys on one card."""
+    shape = (_INT * 2)()
+    with torch.cuda.device(device):
+        err = load().xfmr_threshold_select_shape(width, shape)
+    _raise_on(err, "xfmr_threshold_select_shape")
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    return shape[0], shape[1], sm_count
+
+
+def threshold_select_grid(pool: torch.Tensor) -> tuple[int, int]:
+    """The (warps of a block, blocks) that `threshold_select` launches
+    for this pool on this card."""
+    block_warps, blocks_per_sm, sm_count = _select_shape(
+        pool.device.index, pool.shape[1]
+    )
+    return select_grid(pool.shape[0], sm_count, block_warps, blocks_per_sm)
+
+
 def threshold_select(
     pool: torch.Tensor,
     k: int,
@@ -482,11 +526,15 @@ def threshold_select(
     if not 0 < k <= capacity <= width:
         msg = f"need 0 < {k=} <= {capacity=} <= {width=}"
         raise ValueError(msg)
+    if not 0 <= quantum_bits <= 30:
+        msg = f"need 0 <= {quantum_bits=} <= 30"
+        raise ValueError(msg)
     keys = torch.empty((batch, capacity), dtype=torch.int32, device=pool.device)
     meta = torch.empty_like(keys)
     if batch == 0:
         return keys, meta
     lib = load()
+    block_warps, blocks = threshold_select_grid(pool)
     stream = torch.cuda.current_stream(pool.device).cuda_stream
     err = lib.xfmr_threshold_select(
         pool.data_ptr(),
@@ -498,6 +546,8 @@ def threshold_select(
         capacity,
         quantum_bits,
         1 if shared_exponent else 0,
+        block_warps,
+        blocks,
         stream,
     )
     _raise_on(err, "threshold_select")

@@ -400,6 +400,80 @@ def unpack_positions(
     return tile * corpus_tile + col
 
 
+def _tau_seed(
+    pool: torch.Tensor, shared_exponent: bool
+) -> tuple[torch.Tensor, int]:
+    """(B, 1) start of the search for tau and its highest searched bit:
+    the row max's exponent bits and bit 22, or 0 and bit 30."""
+    if shared_exponent:
+        return pool.amax(dim=1, keepdim=True) & ~((1 << 23) - 1), 22
+    return torch.zeros((pool.shape[0], 1), dtype=torch.int32,
+                       device=pool.device), 30
+
+
+def bit_tau_plain(
+    pool: torch.Tensor,
+    k: int,
+    quantum_bits: int = 0,
+    shared_exponent: bool = False,
+) -> torch.Tensor:
+    """(B, 1) tau of the threshold select by the TPU kernel's bit search:
+    from the seed, each bit from the highest searched one down to
+    `quantum_bits` is kept when at least k keys are >= tau | bit."""
+    tau, high_bit = _tau_seed(pool, shared_exponent)
+    for bit in range(high_bit, quantum_bits - 1, -1):
+        cand = tau | (1 << bit)
+        count = (pool >= cand).sum(dim=1, keepdim=True)
+        tau = torch.where(count >= k, cand, tau)
+    return tau
+
+
+RADIX_BITS = 8
+
+
+def radix_tau_plain(
+    pool: torch.Tensor,
+    k: int,
+    quantum_bits: int = 0,
+    shared_exponent: bool = False,
+) -> torch.Tensor:
+    """(B, 1) tau of the threshold select by the Hopper kernel's radix
+    search, its plain version.
+
+    The searched bits (from 22 or 30 down to `quantum_bits`) are taken in
+    digits of at most RADIX_BITS from the top. Per digit: the histogram
+    of the digit over the keys that carry tau's bits above it, and the
+    highest bin whose suffix count reaches the keys still needed; when
+    the keys with the prefix are fewer (only at the first digit, where
+    fewer than k keys reach the seed), tau stays. Equals `bit_tau_plain`
+    on every input.
+    """
+    tau, high_bit = _tau_seed(pool, shared_exponent)
+    keys = pool.to(torch.int64)
+    tau = tau.to(torch.int64)
+    need = torch.full_like(tau, k)
+    top = high_bit + 1
+    while top > quantum_bits:
+        shift = max(top - RADIX_BITS, quantum_bits)
+        bins = 1 << (top - shift)
+        inside = (keys >> top) == (tau >> top)
+        digit = (keys >> shift) & (bins - 1)
+        hist = torch.zeros((pool.shape[0], bins + 1), dtype=torch.int64,
+                           device=pool.device)
+        hist.scatter_add_(1, digit, inside.to(torch.int64))
+        # suffix[:, b]: keys with the prefix in bins >= b (suffix[:, bins] = 0)
+        suffix = hist.flip(1).cumsum(1).flip(1)
+        reach = suffix[:, :bins] >= need
+        found = reach.any(dim=1, keepdim=True)
+        # suffix counts fall with the bin: the reaching bins are 0..bin
+        chosen = reach.sum(dim=1, keepdim=True) - 1
+        above = suffix.gather(1, (chosen + 1).clamp(min=0))
+        tau = torch.where(found, tau | (chosen.clamp(min=0) << shift), tau)
+        need = torch.where(found, need - above, need)
+        top = shift
+    return tau.to(torch.int32)
+
+
 def select_topk_keys_plain(
     pool: torch.Tensor,
     k: int,
@@ -418,16 +492,7 @@ def select_topk_keys_plain(
     """
     batch, width = pool.shape
     device = pool.device
-    if shared_exponent:
-        tau = pool.amax(dim=1, keepdim=True) & ~((1 << 23) - 1)
-        high_bit = 22
-    else:
-        tau = torch.zeros((batch, 1), dtype=torch.int32, device=device)
-        high_bit = 30
-    for bit in range(high_bit, quantum_bits - 1, -1):
-        cand = tau | (1 << bit)
-        count = (pool >= cand).sum(dim=1, keepdim=True)
-        tau = torch.where(count >= k, cand, tau)
+    tau = bit_tau_plain(pool, k, quantum_bits, shared_exponent)
     floor = torch.clamp(tau, min=1)
     # int32 wrap-around like the reference's jnp arithmetic
     step = torch.tensor(1 << quantum_bits, dtype=torch.int32, device=device)
