@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and certified-search paths on one
-CUDA card and check them.
+"""Drive the PyTorch port's serving, certified-search and training paths
+on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -38,6 +38,15 @@ printing no result, when there is no card or any phase fails. Phases:
 8. each kernel's time at the main path's shapes, its plain version's, a
    library yardstick and its bound (the threshold select and its
    yardstick from CUDA graphs, so the host does not set the reading);
+9. training: (a) a synthetic corpus at ML-1M's size through the port's
+   ETL, the reference config trained 300 steps through `cli fit` with
+   two validations on the dense index (finite logged losses, moved
+   parameters, metrics in [0, 1]), 3 steps on the card held against the
+   CPU from one init at bf16 and at f32, and the train step's time at
+   batch 32 and 4096 with its device-idle share; (b) a 2^17-item catalog whose eval search
+   runs the scan index (kernel 1), its answers held against dense
+   scores; (c) the artifact of (a) served by `RecommenderEngine`, its
+   answers equal to the trainer's own search;
 then the card, one JSON line for the kernels, and the result line.
 """
 
@@ -58,13 +67,19 @@ import urllib.request
 import numpy as np
 import torch
 
+from xfmr_rec_torch.data.module import RecDataModule
+from xfmr_rec_torch.data.prepare import load_table, prepare_movielens
+from xfmr_rec_torch.data.synthetic import generate_movielens
 from xfmr_rec_torch.index.mips import RetrievalIndex
 from xfmr_rec_torch.models.convert import torch_name
-from xfmr_rec_torch.models.encoder import ModelConfig, TextEncoder
+from xfmr_rec_torch.models.encoder import ModelConfig, TextEncoder, init_encoder
 from xfmr_rec_torch.models.tokenizer import HashingTokenizer, TokenizerConfig
 from xfmr_rec_torch.ops import kernels, topk, topk_f32
 from xfmr_rec_torch.serving.engine import RecommenderEngine
+from xfmr_rec_torch.serving.schemas import Query
 from xfmr_rec_torch.serving.service import RecService, make_server
+from xfmr_rec_torch.training import cli
+from xfmr_rec_torch.training import module as train_mod
 
 SEED = 0
 # the text tower the reference trains (BASELINE.md: BERT 1 layer,
@@ -1456,6 +1471,301 @@ def phase_timings(guaranteed: dict, select: dict, certified: dict,
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+# ML-1M's published size; the synthetic generator caps each user's
+# ratings, so it writes fewer rows than asked (printed)
+ML1M = dict(num_users=6040, num_movies=3883, num_ratings=1_000_209)
+TRAIN_STEPS = 300
+# a catalog past RetrievalIndex's 65,536-item "auto" threshold, so the
+# trainer's eval search runs the packed scan (kernel 1)
+SCAN_CORPUS = dict(num_users=2000, num_movies=1 << 17, num_ratings=40_000)
+
+
+def write_json(path: pathlib.Path, value: dict) -> pathlib.Path:
+    path.write_text(json.dumps(value))
+    return path
+
+
+def train_step_ms(config, batch_np, dev, steps: int) -> dict:
+    """One train step at the batch's size on the card: CUDA-event ms a
+    step after 3 warm-up steps, and the device's idle share of that step
+    time, from the device time a step of 5 steps under torch.profiler
+    (whose own wall, longer by the profiler's host cost, is returned as
+    `wall_ms`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state = train_mod.TrainState(config, seed=SEED, device=dev)
+    batch = train_mod.batch_to_device(batch_np, dev)
+
+    def step():
+        return train_mod.train_step(state, batch)
+
+    ms = cuda_ms(step, iters=steps, warmup=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(
+        ((evt.self_device_time_total / 1e3 / 5, evt.count // 5, evt.key)
+         for evt in prof.key_averages()
+         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total),
+        reverse=True,
+    )
+    busy_ms = sum(row[0] for row in rows)
+    idle = 1 - busy_ms / ms if busy_ms else None
+    return {"ms": ms, "idle": idle, "busy_ms": busy_ms, "wall_ms": wall_ms / 5,
+            "kernels": sum(row[1] for row in rows), "top": rows[:6]}
+
+
+def eval_search_ms(trainer) -> tuple[float, dict, np.ndarray]:
+    """The trainer's eval search on its first val batch (256 users, the
+    train histories excluded): mean ms a call over 10 calls between CUDA
+    events, which include the call's host work and its copy of the
+    answer to the host. Returns the ms, the batch and the user vectors."""
+    batch = next(trainer.data.eval_batches("val"))
+    users = trainer._encode_rows(batch["user_tokens"])
+
+    def search():
+        return trainer.index.search(
+            users, top_k=trainer.config.top_k,
+            exclude_positions=batch["exclude_positions"],
+        )
+
+    return cuda_ms(search, iters=10, warmup=2), batch, users
+
+
+# card vs CPU, 3 steps from one init: (losses and grad_norm rtol, atol;
+# largest parameter difference). bf16 rounds differently on the two
+# devices; f32 differs by summation order only, but Adam divides each
+# gradient by its own RMS, so a component near rounding noise still moves
+# a fair part of lr either way (seen on an H100: 7.6e-6 at bf16, 6.4e-6 at
+# f32). A zeroed gradient moves the parameters 3 * lr = 3e-4 away and a
+# negated one up to 6e-4, so the bounds fail a broken update.
+CARD_VS_CPU = {"bfloat16": ((3e-2, 1e-2), 5e-5), "float32": ((1e-4, 1e-5), 5e-5)}
+
+
+def check_card_steps_match_cpu(config, batches, dev) -> dict:
+    """Three train steps (dropout off) on the card and on the CPU from one
+    init, at bf16 (the reference config) and at f32, held within
+    `CARD_VS_CPU`. Returns the largest parameter difference per dtype."""
+    worst = {}
+    for dtype, (loss_tol, param_tol) in CARD_VS_CPU.items():
+        run = dataclasses.replace(config, dropout_rate=0.0, compute_dtype=dtype)
+        states = [train_mod.TrainState(run, seed=SEED, device=d)
+                  for d in ("cpu", dev)]
+        for batch in batches:
+            cpu_m, card_m = (
+                train_mod.train_step(s, train_mod.batch_to_device(batch, s.device))
+                for s in states
+            )
+            for key, value in cpu_m.items():
+                got, want = float(card_m[key]), float(value)
+                check(abs(got - want) <= loss_tol[1] + loss_tol[0] * abs(want),
+                      f"card vs cpu {dtype} {key}: {got} vs {want}")
+        cpu_p, card_p = (s.model.state_dict() for s in states)
+        worst[dtype] = max((card_p[n].cpu() - v).abs().max().item()
+                           for n, v in cpu_p.items())
+        check(worst[dtype] <= param_tol,
+              f"card vs cpu {dtype} parameters differ by {worst[dtype]}")
+    return worst
+
+
+def phase_training(dev, card: str) -> dict:
+    """(a) generate and prepare a corpus at ML-1M's size, train the
+    reference config through the CLI with two validations on the dense
+    index, hold 3 card steps against the CPU and time the step; (b) a
+    2^17-item catalog whose eval search runs the scan index (kernel 1),
+    checked against dense scores; (c) serve the artifact of (a) with the
+    engine and hold its answers against the trainer's own search."""
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    root = pathlib.Path(tmp.name)
+    try:
+        # (a) ML-1M size, the reference config, through the CLI
+        t0 = time.perf_counter()
+        generate_movielens(root / "ml1m", seed=SEED, text_signal=True, **ML1M)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prepare_movielens(root / "ml1m")
+        etl_s = time.perf_counter() - t0
+        table = load_table(root / "ml1m", "ratings")
+        ratings = len(table["rating"])
+        # validate twice, every TRAIN_STEPS / 3 steps (the run stops at
+        # max_steps before a third)
+        steps_per_epoch = int(table["is_train"].sum()) // 32
+        val_interval = (TRAIN_STEPS // 3 + 0.5) / steps_per_epoch
+        print(f"training corpus: synthetic ML-1M size ({ML1M['num_users']} "
+              f"users, {ML1M['num_movies']} movies, {ratings} ratings "
+              f"written of {ML1M['num_ratings']} asked), generated in "
+              f"{gen_s:.2f} s, prepared by the port's ETL in {etl_s:.2f} s "
+              "(host)")
+        config_a = write_json(root / "ml1m.json", {
+            "model": {},
+            "data": {"data_dir": str(root / "ml1m")},
+            "trainer": {"max_steps": TRAIN_STEPS,
+                        "val_check_interval": val_interval,
+                        "log_every_steps": 25, "log_dir": str(root / "runs"),
+                        "run_name": "ml1m", "seed": SEED},
+        })
+        artifact = root / "artifact"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer, val = cli.run(["fit", "--config", str(config_a), "--device",
+                                str(dev), "--save_artifact", str(artifact)])
+        fit_s = time.perf_counter() - t0
+        launches_a = kernels.launch_counts()
+        config = trainer.config
+        check(config == train_mod.TrainConfig(), "not the reference config")
+        check(trainer.global_step == TRAIN_STEPS, "fit stopped early")
+        rows = [json.loads(line) for line in
+                (trainer.logger.log_dir / "metrics.jsonl").read_text()
+                .splitlines()]
+        train_rows = [r for r in rows if "train/grad_norm" in r]
+        val_rows = [r for r in rows if "val/RetrievalNormalizedDCG" in r]
+        check(len(train_rows) == TRAIN_STEPS // 25, "train rows missing")
+        check(len(val_rows) >= 2, f"{len(val_rows)} validations, not 2")
+        check(all(math.isfinite(v) for r in rows for v in r.values()),
+              "a logged value is not finite")
+        retrieval = {k: v for k, v in val.items() if "/Retrieval" in k}
+        check(len(retrieval) == 6
+              and all(0.0 <= v <= 1.0 for v in retrieval.values()),
+              f"val metrics out of [0, 1]: {retrieval}")
+        check(trainer.index.method == "dense",
+              f"eval index is {trainer.index.method!r}, not dense")
+        init = init_encoder(config, SEED).state_dict()
+        moved = max((v.cpu() - init[n]).abs().max().item()
+                    for n, v in trainer.state.model.state_dict().items())
+        check(moved > 0, "the parameters did not move")
+        print(f"training fit: {TRAIN_STEPS} steps of the reference config "
+              f"(BERT 1 layer, hidden 32, 4 heads, intermediate 32, vocab "
+              f"30522, max_length 64, bf16, PairwiseHingeLoss, batch 32) "
+              f"through `cli fit` in {fit_s:.2f} s host wall with "
+              f"{len(val_rows)} validations on the {trainer.index.method!r} "
+              f"index; first / last logged train loss "
+              f"{train_rows[0]['train/PairwiseHingeLoss']:.4f} / "
+              f"{train_rows[-1]['train/PairwiseHingeLoss']:.4f}, grad_norm "
+              f"{train_rows[-1]['train/grad_norm']:.4f}; parameters moved "
+              f"by up to {moved:.3e}; val "
+              + ", ".join(f"{k.split('/Retrieval')[1]} {v:.4f}"
+                          for k, v in retrieval.items())
+              + f" [{card}]")
+        print(f"training (a) kernel launches: {launches_a}")
+        dense_ms, _, _ = eval_search_ms(trainer)
+        print(f"training eval search, dense index of {trainer.data.num_items} "
+              f"items: {dense_ms:.3f} ms a batch of "
+              f"{trainer.data.config.eval_batch_size} users, top-"
+              f"{config.top_k} with the train histories excluded [{card}]")
+
+        batches = [b for _, b in zip(range(3), trainer.data.train_batches(0))]
+        worst = check_card_steps_match_cpu(config, batches, dev)
+        print("training card vs cpu: 3 steps (dropout off) from one init "
+              "agree; largest parameter difference "
+              + ", ".join(f"{d} {w:.3e} (bound {CARD_VS_CPU[d][1]:.0e})"
+                          for d, w in worst.items()) + f" [{card}]")
+        big = RecDataModule(dataclasses.replace(trainer.data.config,
+                                                batch_size=4096))
+        big.setup()
+        timing = {
+            32: train_step_ms(config, batches[0], dev, steps=50),
+            4096: train_step_ms(config, next(big.train_batches(0)), dev,
+                                steps=10),
+        }
+        for size, t in timing.items():
+            idle = ("not measured (the profiler recorded no device time)"
+                    if t["idle"] is None else f"{t['idle']:.4f}")
+            print(f"train step at batch {size}: {t['ms']:.3f} ms (CUDA "
+                  f"events, dropout on); profiler: device busy "
+                  f"{t['busy_ms']:.3f} ms and {t['kernels']} device "
+                  f"operations a step (profiled wall {t['wall_ms']:.3f} "
+                  f"ms), device idle share of the step {idle} [{card}]")
+            for dev_ms, count, name in t["top"]:
+                print(f"  {dev_ms:9.3f} ms  x{count:<4d} {name[:100]}")
+
+        # (b) a catalog past the scan threshold
+        t0 = time.perf_counter()
+        generate_movielens(root / "scan", seed=SEED + 1, text_signal=True,
+                           **SCAN_CORPUS)
+        prepare_movielens(root / "scan")
+        scan_prep_s = time.perf_counter() - t0
+        config_b = write_json(root / "scan.json", {
+            "model": {},
+            "data": {"data_dir": str(root / "scan")},
+            "trainer": {"max_steps": 20, "limit_val_batches": 2,
+                        "limit_val_loss_batches": 2, "checkpointing": False,
+                        "log_dir": str(root / "runs"), "run_name": "scan",
+                        "seed": SEED},
+        })
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        scan_trainer, scan_val = cli.run(["fit", "--config", str(config_b),
+                                          "--device", str(dev)])
+        scan_fit_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        index = scan_trainer.index
+        check(index.method == "scan",
+              f"eval index at 2^17 items is {index.method!r}, not scan")
+        check(launches["packed_scan"] > 0,
+              "the eval search never launched packed_scan")
+        check(all(0.0 <= v <= 1.0 for k, v in scan_val.items()
+                  if "/Retrieval" in k), "scan val metrics out of [0, 1]")
+        scan_ms, batch, users = eval_search_ms(scan_trainer)
+        top_k = scan_trainer.config.top_k
+        _, got_ids = index.search(users, top_k=top_k,
+                                  exclude_positions=batch["exclude_positions"])
+        got_pos = torch.tensor(
+            [[index._id_to_pos[int(i)] for i in row] for row in got_ids],
+            device=dev,
+        )
+        n = len(index)
+        excl = [[int(p) for p in row if p < n]
+                for row in batch["exclude_positions"]]
+        dense = (scaled_queries(index, users).float()
+                 @ index.corpus.float().T)
+        tight = quantum_scaled(index_quantum_bits(index)) + 1e-6
+        check_exclusion_search(dense, index._scan_setup()[2], excl, got_pos,
+                               top_k, tight, "trainer eval search")
+        print(f"training (b): {SCAN_CORPUS['num_movies']} movies, "
+              f"{len(scan_trainer.data.train_user_pos)} train interactions "
+              f"(corpus generated and prepared in {scan_prep_s:.2f} s); "
+              f"`cli fit` of 20 steps + validation in {scan_fit_s:.2f} s on "
+              f"the {index.method!r} index; {len(got_ids)} eval queries with "
+              f"their train histories excluded == dense top-{top_k} of the "
+              f"lane-pair survivors within one key quantum ({tight:.2e} "
+              f"scaled) [{card}]")
+        print(f"training (b) kernel launches: {launches}")
+        print(f"training eval search, scan index of {n} items: "
+              f"{scan_ms:.3f} ms a batch of {len(got_ids)} users, top-"
+              f"{top_k} with the train histories excluded [{card}]")
+
+        # (c) serve what (a) trained
+        engine = RecommenderEngine(artifact, device=dev)
+        n = trainer.data.num_items
+        for pos in (0, n // 3, 2 * n // 3, n - 1):
+            item_id = int(trainer.data.item_ids[pos])
+            text = trainer.data.item_texts[pos]
+            served = engine.search_items(Query(text=text),
+                                         exclude_item_ids=[item_id], top_k=20)
+            _, want = trainer.index.search(trainer.embed_texts([text]),
+                                           top_k=20, exclude_ids=[[item_id]])
+            check([c.movie_id for c in served] == want[0].tolist(),
+                  f"served answer for item {item_id} differs from the "
+                  "trainer's search")
+        print(f"training (c): the saved artifact serves from "
+              f"RecommenderEngine on the card; 4 item queries with the item "
+              f"excluded == the trainer's own index search [{card}]")
+    finally:
+        tmp.cleanup()
+    return {"launches": {name: launches_a[name] + launches[name]
+                         for name in kernels.LAUNCHES},
+            "timing": timing}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1493,12 +1803,13 @@ def main() -> int:
     timings = phase_timings(guaranteed, select, certified, card)
     phase_profile(guaranteed, card, "fused")
     phase_profile(guaranteed, card, "f32")
+    training = phase_training(dev, card)
 
     # launches on the main paths only: each path ran with the counts set
     # to 0 just before it and read just after
     launches = {
         name: sum(phase["launches"][name]
-                  for phase in (serving, guaranteed, certified))
+                  for phase in (serving, guaranteed, certified, training))
         for name in kernels.LAUNCHES
     }
     for name, count_ in launches.items():

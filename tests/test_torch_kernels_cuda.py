@@ -473,3 +473,44 @@ def test_lane_scan_and_count_run_on_tensor_cores_without_spills(
             text=True, check=True,
         ).stdout
         assert "HGMMA" in sass
+
+
+@pytest.mark.parametrize(
+    "compute_dtype,loss_tol,param_tol",
+    [("bfloat16", (3e-2, 1e-2), 5e-5), ("float32", (1e-4, 1e-5), 5e-5)],
+)
+def test_train_steps_on_the_card_match_the_cpu(
+    card, tmp_path, compute_dtype, loss_tol, param_tol
+):
+    """Three train steps at the reference config (dropout off) on the card
+    and on the CPU from one init over the same batches, at bf16 and at
+    f32: losses and grad_norm within `loss_tol` (rtol, atol), parameters
+    within `param_tol`. bf16 rounds differently on the two devices; f32
+    differs by summation order only, but Adam divides each gradient by
+    its own RMS, so a component near rounding noise moves a fair part of
+    lr either way. A zeroed gradient moves
+    parameters 3 * lr = 3e-4 away and a negated one up to 6e-4, past the
+    bound."""
+    from xfmr_rec_torch.data.module import DataConfig, RecDataModule
+    from xfmr_rec_torch.training import module as train_mod
+
+    data = RecDataModule(DataConfig(data_dir=str(tmp_path), batch_size=32))
+    data.prepare_data()
+    data.setup()
+    batches = [b for _, b in zip(range(3), data.train_batches(0))]
+    config = train_mod.TrainConfig(dropout_rate=0.0,
+                                   compute_dtype=compute_dtype)
+    states = [train_mod.TrainState(config, seed=0, device=d)
+              for d in ("cpu", card)]
+    for batch in batches:
+        cpu_m, card_m = (
+            train_mod.train_step(s, train_mod.batch_to_device(batch, s.device))
+            for s in states
+        )
+        for key in cpu_m:
+            torch.testing.assert_close(card_m[key].cpu(), cpu_m[key],
+                                       rtol=loss_tol[0], atol=loss_tol[1])
+    cpu_p, card_p = (s.model.state_dict() for s in states)
+    for name, value in cpu_p.items():
+        torch.testing.assert_close(card_p[name].cpu(), value, rtol=0,
+                                   atol=param_tol)

@@ -361,7 +361,7 @@ class RetrievalIndex(CorpusMetadata):
             scores, positions = self._search_certified_fused(
                 queries_f32, top_k, exact_scores
             )
-        return scores, self._ids32[positions]
+        return scores, self.ids[positions]
 
     def _padded_queries(self, queries_f32: np.ndarray, floor: int):
         """Rows zero-padded to a power of two of at least `floor`, on the

@@ -1,9 +1,10 @@
-"""Carry encoder weights from the JAX package's flat export.
+"""Carry encoder weights to and from the flat export both packages write.
 
-`Trainer.save` writes `encoder.npz` (the flax param tree flattened with
-`/`-joined names, f32) and `portable.json` (model config + tokenizer
-settings). The port's `TextEncoder` keeps the flax names and layouts, so
-conversion is a rename: `layer_0/query/kernel` -> `layers.0.query.kernel`.
+`Trainer.save` (either package's) writes `encoder.npz` (the flax param
+tree flattened with `/`-joined names, f32) and `portable.json` (model
+config + tokenizer settings). The port's `TextEncoder` keeps the flax
+names and layouts, so conversion is a rename both ways:
+`layer_0/query/kernel` <-> `layers.0.query.kernel`.
 """
 
 from __future__ import annotations
@@ -19,10 +20,50 @@ from xfmr_rec_torch.models.encoder import ModelConfig, TextEncoder
 from xfmr_rec_torch.params import PORTABLE_JSON, PORTABLE_NPZ
 
 _LAYER = re.compile(r"^layer_(\d+)/")
+_TORCH_LAYER = re.compile(r"^layers\.(\d+)\.")
 
 
-def torch_name(flax_name: str) -> str:
-    return _LAYER.sub(r"layers.\1.", flax_name).replace("/", ".")
+def torch_name(name: str) -> str:
+    """Flat flax name -> the port's state_dict name."""
+    return _LAYER.sub(r"layers.\1.", name).replace("/", ".")
+
+
+def flax_name(name: str) -> str:
+    """The port's state_dict name -> flat flax name."""
+    return _TORCH_LAYER.sub(r"layer_\1/", name).replace(".", "/")
+
+
+def flat_from_encoder_state(
+    state: dict[str, torch.Tensor],
+) -> dict[str, np.ndarray]:
+    """The port's `TextEncoder` state_dict -> flat flax params (f32 numpy
+    copies), the layout of `encoder.npz`."""
+    return {
+        flax_name(name): np.array(tensor.detach().float().cpu())
+        for name, tensor in state.items()
+    }
+
+
+def write_portable(
+    state: dict[str, torch.Tensor],
+    model_dump: dict,
+    data_dump: dict,
+    out_dir: str | pathlib.Path,
+) -> pathlib.Path:
+    """Write `encoder.npz` + `portable.json` in the layout of the
+    reference's `serving/portable.py` `write_portable`."""
+    out = pathlib.Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    np.savez(out / PORTABLE_NPZ, **flat_from_encoder_state(state))
+    tokenizer = {
+        "kind": data_dump.get("tokenizer", "hashing"),
+        "vocab_size": data_dump.get("vocab_size", model_dump["vocab_size"]),
+        "max_length": data_dump.get("max_length", model_dump["max_length"]),
+    }
+    (out / PORTABLE_JSON).write_text(
+        json.dumps({"model": model_dump, "tokenizer": tokenizer}, indent=2)
+    )
+    return out / PORTABLE_NPZ
 
 
 def encoder_state_from_flat(
@@ -73,6 +114,7 @@ def build_encoder(
     state: dict[str, torch.Tensor],
     device: torch.device | str,
 ) -> TextEncoder:
+    """A serving encoder: loaded, on `device`, with no gradients."""
     encoder = TextEncoder(config)
     encoder.load_state_dict(state)
-    return encoder.to(device).eval()
+    return encoder.requires_grad_(False).to(device).eval()

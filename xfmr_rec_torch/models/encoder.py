@@ -1,14 +1,22 @@
 """Text encoder: BERT-style post-LN transformer + pooling + L2 normalize.
 
-Port of `xfmr_rec_tpu/models/encoder.py` `TextEncoder` for serving (no
-dropout, no autograd needed). Parameters keep the flax layouts and names
-(a Dense kernel is (in, out); the attention projections are
-(hidden, heads, head_dim) and (heads, head_dim, hidden)), so
-`models/convert.py` only renames. Parameters are f32; the forward
+Port of `xfmr_rec_tpu/models/encoder.py` `TextEncoder`. Parameters keep
+the flax layouts and names (a Dense kernel is (in, out); the attention
+projections are (hidden, heads, head_dim) and (heads, head_dim, hidden)),
+so `models/convert.py` only renames. Parameters are f32; the forward
 computes in `compute_dtype` (bf16 by default) like the flax module:
 tables, kernels and activations are cast to it, LayerNorm statistics and
 the softmax run in f32, and the pooled vector is cast to f32 before the
 normalize.
+
+Training: `forward(tokens, generator=g)` applies dropout where the flax
+module does (after the embedding LayerNorm, on the attention
+probabilities, on the attention output and on the FFN output), as flax
+does it: keep with probability 1 - p, scale kept values by 1 / (1 - p).
+The masks are drawn from the explicit `torch.Generator` `g`, so a run
+that restores the generator's state replays them; they never match
+JAX's. With no generator the forward is deterministic. `init_encoder`
+draws fresh parameters with the flax initializers of the reference.
 
 The attention covers at most `max_length` (64) tokens over a few heads,
 computed outside any kernel in the JAX package too, so here it is plain
@@ -135,18 +143,42 @@ def _activation(name: str):
 
 
 def _param(*shape: int) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape), requires_grad=False)
+    return nn.Parameter(torch.zeros(shape))
+
+
+def dropout(
+    x: torch.Tensor, rate: float, generator: torch.Generator | None
+) -> torch.Tensor:
+    """flax `nn.Dropout`: identity without a generator (deterministic),
+    else keep each value with probability 1 - rate, scaled by
+    1 / (1 - rate), the mask drawn from `generator`."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = (
+        torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    )
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class Embed(nn.Module):
-    """Lookup table (flax `nn.Embed`: param `embedding`)."""
+    """Lookup table (flax `nn.Embed`: param `embedding`).
+
+    Rows are gathered in f32 and then cast, which gives flax's values (a
+    cast commutes with a gather) and lets the backward accumulate
+    repeated ids in f32 through `embedding_dense_backward`. Indexing
+    (`table[ids]`) backpropagates through a scatter that serializes
+    repeated ids: 169 ms of a 204 ms step at batch 4096 on an H100,
+    where every row repeats the CLS id and the JSON keys.
+    """
 
     def __init__(self, num: int, features: int) -> None:
         super().__init__()
         self.embedding = _param(num, features)
 
     def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return self.embedding.to(dtype)[ids]
+        return nn.functional.embedding(ids, self.embedding).to(dtype)
 
 
 class Dense(nn.Module):
@@ -174,7 +206,7 @@ class LayerNorm(nn.Module):
 
     def __init__(self, features: int, eps: float) -> None:
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(features), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(features))
         self.bias = _param(features)
         self.eps = eps
 
@@ -243,9 +275,14 @@ class TransformerLayer(nn.Module):
         self.ffn_out = Dense((config.intermediate_size,), (hidden,))
         self.ffn_norm = LayerNorm(hidden, config.layer_norm_eps)
         self.act = _activation(config.hidden_act)
+        self.rate = config.dropout_rate
 
     def forward(
-        self, hidden: torch.Tensor, mask_bias: torch.Tensor, dtype: torch.dtype
+        self,
+        hidden: torch.Tensor,
+        mask_bias: torch.Tensor,
+        dtype: torch.dtype,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         q = self.query(hidden, dtype)
         k = self.key(hidden, dtype)
@@ -257,11 +294,12 @@ class TransformerLayer(nn.Module):
         )
         scores = scores + mask_bias
         probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+        probs = dropout(probs, self.rate, generator)
         context = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        attn_out = self.attn_out(context, dtype)
+        attn_out = dropout(self.attn_out(context, dtype), self.rate, generator)
         hidden = self.attn_norm(hidden + attn_out, dtype)
         ffn = self.act(self.ffn_in(hidden, dtype))
-        ffn = self.ffn_out(ffn, dtype)
+        ffn = dropout(self.ffn_out(ffn, dtype), self.rate, generator)
         return self.ffn_norm(hidden + ffn, dtype)
 
 
@@ -285,8 +323,12 @@ class TextEncoder(nn.Module):
         if config.pooling_mode == "pooler":
             self.pooler = Dense((config.hidden_size,), (config.hidden_size,))
 
-    @torch.no_grad()
-    def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        token_ids: torch.Tensor,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        """Unit-norm embeddings; dropout on when `generator` is given."""
         cfg = self.config
         dtype = cfg.torch_dtype
         token_ids = token_ids.long()
@@ -295,9 +337,10 @@ class TextEncoder(nn.Module):
         positions = torch.arange(token_ids.shape[-1], device=token_ids.device)
         embeds = embeds + self.position_embed(positions, dtype)[None]
         hidden = self.embed_norm(embeds, dtype)
+        hidden = dropout(hidden, cfg.dropout_rate, generator)
         mask_bias = torch.where(mask, 0.0, -1e9).to(dtype)[:, None, None, :]
         for layer in self.layers:
-            hidden = layer(hidden, mask_bias, dtype)
+            hidden = layer(hidden, mask_bias, dtype, generator)
         pooled = self._pool(hidden, mask, dtype).float()
         if cfg.normalize:
             pooled = l2_normalize(pooled)
@@ -319,3 +362,59 @@ class TextEncoder(nn.Module):
         total = (hidden * weights).sum(dim=1)
         count = torch.clamp(weights.sum(dim=1), min=1e-9)
         return total / count
+
+
+def _truncated_normal(
+    shape: tuple, std: float, generator: torch.Generator
+) -> torch.Tensor:
+    """jax.random.truncated_normal(-2, 2) * std."""
+    out = torch.empty(shape)
+    nn.init.trunc_normal_(out, std=1.0, a=-2.0, b=2.0, generator=generator)
+    return out * std
+
+
+def init_encoder(config: ModelConfig, seed: int = 0) -> TextEncoder:
+    """A `TextEncoder` with fresh parameters, drawn on the CPU from `seed`
+    (so every device starts from the same values) with the reference's
+    initializers: with `initializer_range` set, normal(initializer_range)
+    for every Dense kernel and embedding table (the Bloom / hash bucket
+    table too); with None, flax's defaults, lecun-normal kernels
+    (truncated normal, variance 1 / fan_in over the flattened input
+    axes) and normal(1 / sqrt(features)) tables. Biases and LayerNorm
+    offsets are 0, LayerNorm scales and hash importances 1."""
+    generator = torch.Generator().manual_seed(seed)
+    encoder = TextEncoder(config)
+    std = config.initializer_range
+    with torch.no_grad():
+        for module in encoder.modules():
+            if isinstance(module, Dense):
+                fan_in = math.prod(module.kernel.shape[: module._in_dims])
+                if std is None:
+                    stddev = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                    value = _truncated_normal(
+                        module.kernel.shape, stddev, generator
+                    )
+                else:
+                    value = torch.randn(
+                        module.kernel.shape, generator=generator
+                    ) * std
+                module.kernel.copy_(value)
+                module.bias.zero_()
+            elif isinstance(module, Embed):
+                table_std = (
+                    std
+                    if std is not None
+                    else 1.0 / math.sqrt(module.embedding.shape[1])
+                )
+                module.embedding.copy_(
+                    torch.randn(module.embedding.shape, generator=generator)
+                    * table_std
+                )
+            elif isinstance(module, LayerNorm):
+                module.scale.fill_(1.0)
+                module.bias.zero_()
+        if isinstance(encoder.word_embed, CompressedEmbed) and hasattr(
+            encoder.word_embed, "importance"
+        ):
+            encoder.word_embed.importance.embedding.fill_(1.0)
+    return encoder

@@ -2,12 +2,14 @@
 
 Own copy of the pure-Python path of `xfmr_rec_tpu/models/tokenizer.py`:
 the same regex, the same signed-seed 64-bit FNV-1a, the same reserved
-ids, so both packages give identical id arrays for the same text. The
-config is a dataclass with the reference's field names and defaults.
+ids and the same corpus-frequency vocab (`build_vocab`), so both
+packages give identical id arrays for the same text. The config is a
+dataclass with the reference's field names and defaults.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import pathlib
@@ -45,6 +47,23 @@ def fnv1a_64(token: str, seed: int = 0) -> int:
     for byte in token.encode("utf-8"):
         h = ((h ^ byte) * _FNV_PRIME) & _MASK64
     return h
+
+
+def build_vocab(
+    texts: list[str],
+    *,
+    vocab_size: int,
+    oov_buckets: int,
+    lowercase: bool = True,
+) -> list[str]:
+    """Corpus-frequency vocab: all corpus tokens ranked by count (ties
+    lexicographic), the top `vocab_size - NUM_RESERVED - oov_buckets`."""
+    counts: collections.Counter[str] = collections.Counter()
+    for text in texts:
+        counts.update(_tokenize(text, lowercase))
+    keep = max(vocab_size - NUM_RESERVED - oov_buckets, 0)
+    ranked = sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))
+    return [token for token, _ in ranked[:keep]]
 
 
 @dataclasses.dataclass

@@ -1,1 +1,2 @@
-"""Packed-key top-k and its Hopper kernels."""
+"""Packed-key top-k and its Hopper kernels; the loss family, masking and
+similarity."""

@@ -1,6 +1,8 @@
-"""Framework-wide constants (own copy of `xfmr_rec_tpu/params.py`'s
-serving subset; the values must stay identical so one artifact serves
-from either package)."""
+"""Framework-wide constants (own copy of the subset of
+`xfmr_rec_tpu/params.py` the port uses; the values must stay identical so
+one artifact, data directory or config serves either package)."""
+
+DATA_DIR = "data"
 
 # data column names (MovieLens-1M schema)
 ITEM_IDX_COL = "movie_rn"
@@ -10,6 +12,9 @@ USER_IDX_COL = "user_rn"
 USER_ID_COL = "user_id"
 USER_TEXT_COL = "user_text"
 
+# model / training
+BATCH_SIZE = 2**5
+METRIC = {"name": "val/RetrievalNormalizedDCG", "mode": "max"}
 TOP_K = 20
 
 # serving artifact layout
