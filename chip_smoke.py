@@ -47,6 +47,17 @@ printing no result, when there is no card or any phase fails. Phases:
    runs the scan index (kernel 1), its answers held against dense
    scores; (c) the artifact of (a) served by `RecommenderEngine`, its
    answers equal to the trainer's own search;
+10. the history tower: (a) the repo's flagship (history user tower, 16
+   rated slots, InfoNCE) at full width on phase 9's corpus, 300 steps
+   through `cli fit` with two validations, 3 card steps against the CPU
+   at bf16 and f32, the step's time at batch 32 and 1024, and the saved
+   artifact served over HTTP (`recommend_with_user_id` for 64 users in
+   one burst, `recommend_with_user` with a request history), every answer
+   equal to the trainer's own user vector and search; (b) every item
+   channel (Bloom ids, bias, CF bag, cf_rank 128) on phase 9's 2^17-item
+   catalog, whose validation runs kernel 1 on 162-column rows: answers
+   against dense scores, kernel 1 at that width against its plain
+   version, and the artifact served;
 then the card, one JSON line for the kernels, and the result line.
 """
 
@@ -247,6 +258,14 @@ def phase_scan(dev) -> dict:
         ("batch8_f32_inputs", dict(batch=8, f32=True)),
         ("forced_splits5_shuffle1", dict(splits=5, lane_shuffle=1)),
         ("forced_splits32_bias_in_dot", dict(splits=32, bias_in_dot=True)),
+        # the history tower's index rows (phase 10): + bias (33), + CF
+        # factors and popularity (161), both (162); off the 16-byte grid
+        ("dim33", dict(dim=33)),
+        ("dim161_shuffle1", dict(dim=161, lane_shuffle=1)),
+        ("dim162_padding", dict(dim=162, true_num_items=60000)),
+        ("dim161_bias_in_dot", dict(dim=161, bias_in_dot=True)),
+        ("dim161_int8_scales", dict(dim=161, int8=True)),
+        ("batch8_dim162", dict(batch=8, dim=162)),
     ]
     for name, opts in cases:
         opts = dict(opts)
@@ -1549,221 +1568,674 @@ def eval_search_ms(trainer) -> tuple[float, dict, np.ndarray]:
 # f32). A zeroed gradient moves the parameters 3 * lr = 3e-4 away and a
 # negated one up to 6e-4, so the bounds fail a broken update.
 CARD_VS_CPU = {"bfloat16": ((3e-2, 1e-2), 5e-5), "float32": ((1e-4, 1e-5), 5e-5)}
+# The history tower at bf16 parts further. Adam's first steps move each
+# component by about lr in its gradient's sign, so a component whose
+# gradient is within bf16 rounding of zero (the attention key biases,
+# whose exact gradient is 0) takes opposite signs on the two devices and
+# parts by up to 2 * lr a step. Which components these are is read from
+# the CPU alone, so a fault on the card cannot widen the set: at each
+# step, the f32 gradient at the CPU run's parameters against the bf16
+# gradient the CPU's step used; a component whose f32 gradient is less
+# than ROUNDING_MARGIN times that difference, at any step, is left out
+# (one whose gradient is 0 on both is not).
+# Past the first step the two runs' parameters differ in those
+# components, and some word-embedding rows, whose gradients are sums of
+# terms that nearly cancel, then take other directions (an H100 parted
+# 188 of 36,637 such components; the CPU's own f32 run parts from its
+# bf16 run on the same rows). So each leaf may hold at most
+# LEAF_PARTED_SHARE of its other moved components beyond the bound:
+# none in a leaf of fewer than 100, and never a whole leaf.
+ROUNDING_MARGIN = 4.0
+LEAF_PARTED_SHARE = 0.01
 
 
-def check_card_steps_match_cpu(config, batches, dev) -> dict:
+def grads_of(model) -> dict[str, torch.Tensor]:
+    return {n: (p.grad.detach().clone() if p.grad is not None
+                else torch.zeros_like(p)) for n, p in model.named_parameters()}
+
+
+def f32_grads(state32, params, batch, config32) -> dict[str, torch.Tensor]:
+    """The f32 gradient of the train loss at `params` (dropout off)."""
+    state32.model.load_state_dict(params)
+    state32.model.zero_grad(set_to_none=True)
+    losses = train_mod.compute_batch_losses(state32.model, batch, config32)
+    losses[config32.train_loss].backward()
+    return grads_of(state32.model)
+
+
+def card_and_cpu_steps(config, batches, dev, dtype: str,
+                       rounding: bool = False) -> dict:
+    """Train steps (dropout off) on the card and on the CPU from one init,
+    each step's losses and grad_norm held within `CARD_VS_CPU[dtype]`.
+    Returns the init and both runs' final parameters, and with `rounding`
+    a mask a parameter of the components within bf16 rounding of zero
+    (`ROUNDING_MARGIN`) at some step."""
+    loss_tol = CARD_VS_CPU[dtype][0]
+    run = dataclasses.replace(config, dropout_rate=0.0, compute_dtype=dtype)
+    states = [train_mod.TrainState(run, seed=SEED, device=d)
+              for d in ("cpu", dev)]
+    init = {n: v.clone() for n, v in states[0].model.state_dict().items()}
+    if rounding:
+        run32 = dataclasses.replace(run, compute_dtype="float32")
+        state32 = train_mod.TrainState(run32, seed=SEED, device="cpu")
+        zeros = {n: torch.zeros_like(p, dtype=torch.bool)
+                 for n, p in states[0].model.named_parameters()}
+    for batch in batches:
+        if rounding:
+            g32 = f32_grads(state32, states[0].model.state_dict(),
+                            train_mod.batch_to_device(batch, "cpu"), run32)
+        cpu_m, card_m = (
+            train_mod.train_step(s, train_mod.batch_to_device(batch, s.device))
+            for s in states
+        )
+        for key, value in cpu_m.items():
+            got, want = float(card_m[key]), float(value)
+            check(abs(got - want) <= loss_tol[1] + loss_tol[0] * abs(want),
+                  f"card vs cpu {dtype} {key}: {got} vs {want}")
+        if rounding:
+            for n, g16 in grads_of(states[0].model).items():
+                zeros[n] |= g32[n].abs() < ROUNDING_MARGIN * (g16 - g32[n]).abs()
+    out = {"init": init, "cpu": states[0].model.state_dict(),
+           "card": {n: v.cpu() for n, v in states[1].model.state_dict().items()}}
+    if rounding:
+        out["zeros"] = zeros
+    return out
+
+
+def check_card_steps_match_cpu(config, batches, dev,
+                               rounding: bool = False) -> dict:
     """Three train steps (dropout off) on the card and on the CPU from one
-    init, at bf16 (the reference config) and at f32, held within
-    `CARD_VS_CPU`. Returns the largest parameter difference per dtype."""
+    init, at bf16 and at f32, held within `CARD_VS_CPU`; with `rounding`,
+    the bf16 run as the comment above says. Returns the largest parameter
+    difference per dtype, and with `rounding` a row per leaf."""
     worst = {}
-    for dtype, (loss_tol, param_tol) in CARD_VS_CPU.items():
-        run = dataclasses.replace(config, dropout_rate=0.0, compute_dtype=dtype)
-        states = [train_mod.TrainState(run, seed=SEED, device=d)
-                  for d in ("cpu", dev)]
-        for batch in batches:
-            cpu_m, card_m = (
-                train_mod.train_step(s, train_mod.batch_to_device(batch, s.device))
-                for s in states
-            )
-            for key, value in cpu_m.items():
-                got, want = float(card_m[key]), float(value)
-                check(abs(got - want) <= loss_tol[1] + loss_tol[0] * abs(want),
-                      f"card vs cpu {dtype} {key}: {got} vs {want}")
-        cpu_p, card_p = (s.model.state_dict() for s in states)
-        worst[dtype] = max((card_p[n].cpu() - v).abs().max().item()
-                           for n, v in cpu_p.items())
-        check(worst[dtype] <= param_tol,
+    for dtype, (_, param_tol) in CARD_VS_CPU.items():
+        run = card_and_cpu_steps(config, batches, dev, dtype,
+                                 rounding=rounding and dtype == "bfloat16")
+        diffs = {n: (run["card"][n] - v).abs() for n, v in run["cpu"].items()}
+        worst[dtype] = max(d.max().item() for d in diffs.values())
+        if "zeros" not in run:
+            check(worst[dtype] <= param_tol,
+                  f"card vs cpu {dtype} parameters differ by {worst[dtype]}")
+            continue
+        lr = config.learning_rate
+        check(worst[dtype] <= 2 * lr * len(batches) * 1.01,
               f"card vs cpu {dtype} parameters differ by {worst[dtype]}")
+        leaves = []
+        for n, zero in run["zeros"].items():
+            d = diffs[n]
+            moved = torch.maximum((run["cpu"][n] - run["init"][n]).abs(),
+                                  (run["card"][n] - run["init"][n]).abs()) > lr / 2
+            held = moved & ~zero
+            leaves.append(dict(
+                name=n, moved=int(moved.sum()), zeros=int((moved & zero).sum()),
+                parted_zeros=int((moved & zero & (d > param_tol)).sum()),
+                held=int(held.sum()),
+                parted_held=int((held & (d > param_tol)).sum()),
+            ))
+        worst["bf16_leaves"] = leaves
+        bad = [leaf for leaf in leaves if leaf["parted_held"]
+               > int(LEAF_PARTED_SHARE * leaf["held"])]
+        check(not bad, f"card vs cpu {dtype}: leaves with more than "
+              f"{LEAF_PARTED_SHARE} of their moved components outside bf16 "
+              f"rounding of zero beyond {param_tol}: {bad}")
     return worst
 
 
-def phase_training(dev, card: str) -> dict:
-    """(a) generate and prepare a corpus at ML-1M's size, train the
-    reference config through the CLI with two validations on the dense
-    index, hold 3 card steps against the CPU and time the step; (b) a
-    2^17-item catalog whose eval search runs the scan index (kernel 1),
-    checked against dense scores; (c) serve the artifact of (a) with the
-    engine and hold its answers against the trainer's own search."""
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
-    root = pathlib.Path(tmp.name)
-    try:
-        # (a) ML-1M size, the reference config, through the CLI
-        t0 = time.perf_counter()
-        generate_movielens(root / "ml1m", seed=SEED, text_signal=True, **ML1M)
-        gen_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        prepare_movielens(root / "ml1m")
-        etl_s = time.perf_counter() - t0
-        table = load_table(root / "ml1m", "ratings")
-        ratings = len(table["rating"])
-        # validate twice, every TRAIN_STEPS / 3 steps (the run stops at
-        # max_steps before a third)
-        steps_per_epoch = int(table["is_train"].sum()) // 32
-        val_interval = (TRAIN_STEPS // 3 + 0.5) / steps_per_epoch
-        print(f"training corpus: synthetic ML-1M size ({ML1M['num_users']} "
-              f"users, {ML1M['num_movies']} movies, {ratings} ratings "
-              f"written of {ML1M['num_ratings']} asked), generated in "
-              f"{gen_s:.2f} s, prepared by the port's ETL in {etl_s:.2f} s "
-              "(host)")
-        config_a = write_json(root / "ml1m.json", {
-            "model": {},
-            "data": {"data_dir": str(root / "ml1m")},
-            "trainer": {"max_steps": TRAIN_STEPS,
-                        "val_check_interval": val_interval,
-                        "log_every_steps": 25, "log_dir": str(root / "runs"),
-                        "run_name": "ml1m", "seed": SEED},
-        })
-        artifact = root / "artifact"
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        trainer, val = cli.run(["fit", "--config", str(config_a), "--device",
-                                str(dev), "--save_artifact", str(artifact)])
-        fit_s = time.perf_counter() - t0
-        launches_a = kernels.launch_counts()
-        config = trainer.config
-        check(config == train_mod.TrainConfig(), "not the reference config")
-        check(trainer.global_step == TRAIN_STEPS, "fit stopped early")
-        rows = [json.loads(line) for line in
-                (trainer.logger.log_dir / "metrics.jsonl").read_text()
-                .splitlines()]
-        train_rows = [r for r in rows if "train/grad_norm" in r]
-        val_rows = [r for r in rows if "val/RetrievalNormalizedDCG" in r]
-        check(len(train_rows) == TRAIN_STEPS // 25, "train rows missing")
-        check(len(val_rows) >= 2, f"{len(val_rows)} validations, not 2")
-        check(all(math.isfinite(v) for r in rows for v in r.values()),
-              "a logged value is not finite")
-        retrieval = {k: v for k, v in val.items() if "/Retrieval" in k}
-        check(len(retrieval) == 6
-              and all(0.0 <= v <= 1.0 for v in retrieval.values()),
-              f"val metrics out of [0, 1]: {retrieval}")
-        check(trainer.index.method == "dense",
-              f"eval index is {trainer.index.method!r}, not dense")
-        init = init_encoder(config, SEED).state_dict()
-        moved = max((v.cpu() - init[n]).abs().max().item()
-                    for n, v in trainer.state.model.state_dict().items())
-        check(moved > 0, "the parameters did not move")
-        print(f"training fit: {TRAIN_STEPS} steps of the reference config "
-              f"(BERT 1 layer, hidden 32, 4 heads, intermediate 32, vocab "
-              f"30522, max_length 64, bf16, PairwiseHingeLoss, batch 32) "
-              f"through `cli fit` in {fit_s:.2f} s host wall with "
-              f"{len(val_rows)} validations on the {trainer.index.method!r} "
-              f"index; first / last logged train loss "
-              f"{train_rows[0]['train/PairwiseHingeLoss']:.4f} / "
-              f"{train_rows[-1]['train/PairwiseHingeLoss']:.4f}, grad_norm "
-              f"{train_rows[-1]['train/grad_norm']:.4f}; parameters moved "
-              f"by up to {moved:.3e}; val "
-              + ", ".join(f"{k.split('/Retrieval')[1]} {v:.4f}"
-                          for k, v in retrieval.items())
-              + f" [{card}]")
-        print(f"training (a) kernel launches: {launches_a}")
-        dense_ms, _, _ = eval_search_ms(trainer)
-        print(f"training eval search, dense index of {trainer.data.num_items} "
-              f"items: {dense_ms:.3f} ms a batch of "
-              f"{trainer.data.config.eval_batch_size} users, top-"
-              f"{config.top_k} with the train histories excluded [{card}]")
+def phase_training(dev, card: str, root: pathlib.Path) -> dict:
+    """(a) generate and prepare a corpus at ML-1M's size under `root`,
+    train the reference config through the CLI with two validations on
+    the dense index, hold 3 card steps against the CPU and time the step;
+    (b) a 2^17-item catalog whose eval search runs the scan index (kernel
+    1), checked against dense scores; (c) serve the artifact of (a) with
+    the engine and hold its answers against the trainer's own search.
+    Both prepared corpora stay under `root` for phase 10."""
+    # (a) ML-1M size, the reference config, through the CLI
+    t0 = time.perf_counter()
+    generate_movielens(root / "ml1m", seed=SEED, text_signal=True, **ML1M)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prepare_movielens(root / "ml1m")
+    etl_s = time.perf_counter() - t0
+    table = load_table(root / "ml1m", "ratings")
+    ratings = len(table["rating"])
+    # validate twice, every TRAIN_STEPS / 3 steps (the run stops at
+    # max_steps before a third)
+    steps_per_epoch = int(table["is_train"].sum()) // 32
+    val_interval = (TRAIN_STEPS // 3 + 0.5) / steps_per_epoch
+    print(f"training corpus: synthetic ML-1M size ({ML1M['num_users']} "
+          f"users, {ML1M['num_movies']} movies, {ratings} ratings "
+          f"written of {ML1M['num_ratings']} asked), generated in "
+          f"{gen_s:.2f} s, prepared by the port's ETL in {etl_s:.2f} s "
+          "(host)")
+    config_a = write_json(root / "ml1m.json", {
+        "model": {},
+        "data": {"data_dir": str(root / "ml1m")},
+        "trainer": {"max_steps": TRAIN_STEPS,
+                    "val_check_interval": val_interval,
+                    "log_every_steps": 25, "log_dir": str(root / "runs"),
+                    "run_name": "ml1m", "seed": SEED},
+    })
+    artifact = root / "artifact"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer, val = cli.run(["fit", "--config", str(config_a), "--device",
+                            str(dev), "--save_artifact", str(artifact)])
+    fit_s = time.perf_counter() - t0
+    launches_a = kernels.launch_counts()
+    config = trainer.config
+    check(config == train_mod.TrainConfig(), "not the reference config")
+    check(trainer.global_step == TRAIN_STEPS, "fit stopped early")
+    rows = [json.loads(line) for line in
+            (trainer.logger.log_dir / "metrics.jsonl").read_text()
+            .splitlines()]
+    train_rows = [r for r in rows if "train/grad_norm" in r]
+    val_rows = [r for r in rows if "val/RetrievalNormalizedDCG" in r]
+    check(len(train_rows) == TRAIN_STEPS // 25, "train rows missing")
+    check(len(val_rows) >= 2, f"{len(val_rows)} validations, not 2")
+    check(all(math.isfinite(v) for r in rows for v in r.values()),
+          "a logged value is not finite")
+    retrieval = {k: v for k, v in val.items() if "/Retrieval" in k}
+    check(len(retrieval) == 6
+          and all(0.0 <= v <= 1.0 for v in retrieval.values()),
+          f"val metrics out of [0, 1]: {retrieval}")
+    check(trainer.index.method == "dense",
+          f"eval index is {trainer.index.method!r}, not dense")
+    init = init_encoder(config, SEED).state_dict()
+    moved = max((v.cpu() - init[n]).abs().max().item()
+                for n, v in trainer.state.model.state_dict().items())
+    check(moved > 0, "the parameters did not move")
+    print(f"training fit: {TRAIN_STEPS} steps of the reference config "
+          f"(BERT 1 layer, hidden 32, 4 heads, intermediate 32, vocab "
+          f"30522, max_length 64, bf16, PairwiseHingeLoss, batch 32) "
+          f"through `cli fit` in {fit_s:.2f} s host wall with "
+          f"{len(val_rows)} validations on the {trainer.index.method!r} "
+          f"index; first / last logged train loss "
+          f"{train_rows[0]['train/PairwiseHingeLoss']:.4f} / "
+          f"{train_rows[-1]['train/PairwiseHingeLoss']:.4f}, grad_norm "
+          f"{train_rows[-1]['train/grad_norm']:.4f}; parameters moved "
+          f"by up to {moved:.3e}; val "
+          + ", ".join(f"{k.split('/Retrieval')[1]} {v:.4f}"
+                      for k, v in retrieval.items())
+          + f" [{card}]")
+    print(f"training (a) kernel launches: {launches_a}")
+    dense_ms, _, _ = eval_search_ms(trainer)
+    print(f"training eval search, dense index of {trainer.data.num_items} "
+          f"items: {dense_ms:.3f} ms a batch of "
+          f"{trainer.data.config.eval_batch_size} users, top-"
+          f"{config.top_k} with the train histories excluded [{card}]")
 
-        batches = [b for _, b in zip(range(3), trainer.data.train_batches(0))]
-        worst = check_card_steps_match_cpu(config, batches, dev)
-        print("training card vs cpu: 3 steps (dropout off) from one init "
-              "agree; largest parameter difference "
-              + ", ".join(f"{d} {w:.3e} (bound {CARD_VS_CPU[d][1]:.0e})"
-                          for d, w in worst.items()) + f" [{card}]")
-        big = RecDataModule(dataclasses.replace(trainer.data.config,
-                                                batch_size=4096))
-        big.setup()
-        timing = {
-            32: train_step_ms(config, batches[0], dev, steps=50),
-            4096: train_step_ms(config, next(big.train_batches(0)), dev,
-                                steps=10),
-        }
-        for size, t in timing.items():
-            idle = ("not measured (the profiler recorded no device time)"
-                    if t["idle"] is None else f"{t['idle']:.4f}")
-            print(f"train step at batch {size}: {t['ms']:.3f} ms (CUDA "
-                  f"events, dropout on); profiler: device busy "
-                  f"{t['busy_ms']:.3f} ms and {t['kernels']} device "
-                  f"operations a step (profiled wall {t['wall_ms']:.3f} "
-                  f"ms), device idle share of the step {idle} [{card}]")
-            for dev_ms, count, name in t["top"]:
-                print(f"  {dev_ms:9.3f} ms  x{count:<4d} {name[:100]}")
+    batches = [b for _, b in zip(range(3), trainer.data.train_batches(0))]
+    worst = check_card_steps_match_cpu(config, batches, dev)
+    print("training card vs cpu: 3 steps (dropout off) from one init "
+          "agree; largest parameter difference "
+          + ", ".join(f"{d} {w:.3e} (bound {CARD_VS_CPU[d][1]:.0e})"
+                      for d, w in worst.items()) + f" [{card}]")
+    big = RecDataModule(dataclasses.replace(trainer.data.config,
+                                            batch_size=4096))
+    big.setup()
+    timing = {
+        32: train_step_ms(config, batches[0], dev, steps=50),
+        4096: train_step_ms(config, next(big.train_batches(0)), dev,
+                            steps=10),
+    }
+    for size, t in timing.items():
+        idle = ("not measured (the profiler recorded no device time)"
+                if t["idle"] is None else f"{t['idle']:.4f}")
+        print(f"train step at batch {size}: {t['ms']:.3f} ms (CUDA "
+              f"events, dropout on); profiler: device busy "
+              f"{t['busy_ms']:.3f} ms and {t['kernels']} device "
+              f"operations a step (profiled wall {t['wall_ms']:.3f} "
+              f"ms), device idle share of the step {idle} [{card}]")
+        for dev_ms, count, name in t["top"]:
+            print(f"  {dev_ms:9.3f} ms  x{count:<4d} {name[:100]}")
 
-        # (b) a catalog past the scan threshold
-        t0 = time.perf_counter()
-        generate_movielens(root / "scan", seed=SEED + 1, text_signal=True,
-                           **SCAN_CORPUS)
-        prepare_movielens(root / "scan")
-        scan_prep_s = time.perf_counter() - t0
-        config_b = write_json(root / "scan.json", {
-            "model": {},
-            "data": {"data_dir": str(root / "scan")},
-            "trainer": {"max_steps": 20, "limit_val_batches": 2,
-                        "limit_val_loss_batches": 2, "checkpointing": False,
-                        "log_dir": str(root / "runs"), "run_name": "scan",
-                        "seed": SEED},
-        })
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        scan_trainer, scan_val = cli.run(["fit", "--config", str(config_b),
-                                          "--device", str(dev)])
-        scan_fit_s = time.perf_counter() - t0
-        launches = kernels.launch_counts()
-        index = scan_trainer.index
-        check(index.method == "scan",
-              f"eval index at 2^17 items is {index.method!r}, not scan")
-        check(launches["packed_scan"] > 0,
-              "the eval search never launched packed_scan")
-        check(all(0.0 <= v <= 1.0 for k, v in scan_val.items()
-                  if "/Retrieval" in k), "scan val metrics out of [0, 1]")
-        scan_ms, batch, users = eval_search_ms(scan_trainer)
-        top_k = scan_trainer.config.top_k
-        _, got_ids = index.search(users, top_k=top_k,
-                                  exclude_positions=batch["exclude_positions"])
-        got_pos = torch.tensor(
-            [[index._id_to_pos[int(i)] for i in row] for row in got_ids],
-            device=dev,
-        )
-        n = len(index)
-        excl = [[int(p) for p in row if p < n]
-                for row in batch["exclude_positions"]]
-        dense = (scaled_queries(index, users).float()
-                 @ index.corpus.float().T)
-        tight = quantum_scaled(index_quantum_bits(index)) + 1e-6
-        check_exclusion_search(dense, index._scan_setup()[2], excl, got_pos,
-                               top_k, tight, "trainer eval search")
-        print(f"training (b): {SCAN_CORPUS['num_movies']} movies, "
-              f"{len(scan_trainer.data.train_user_pos)} train interactions "
-              f"(corpus generated and prepared in {scan_prep_s:.2f} s); "
-              f"`cli fit` of 20 steps + validation in {scan_fit_s:.2f} s on "
-              f"the {index.method!r} index; {len(got_ids)} eval queries with "
-              f"their train histories excluded == dense top-{top_k} of the "
-              f"lane-pair survivors within one key quantum ({tight:.2e} "
-              f"scaled) [{card}]")
-        print(f"training (b) kernel launches: {launches}")
-        print(f"training eval search, scan index of {n} items: "
-              f"{scan_ms:.3f} ms a batch of {len(got_ids)} users, top-"
-              f"{top_k} with the train histories excluded [{card}]")
+    # (b) a catalog past the scan threshold
+    t0 = time.perf_counter()
+    generate_movielens(root / "scan", seed=SEED + 1, text_signal=True,
+                       **SCAN_CORPUS)
+    prepare_movielens(root / "scan")
+    scan_prep_s = time.perf_counter() - t0
+    config_b = write_json(root / "scan.json", {
+        "model": {},
+        "data": {"data_dir": str(root / "scan")},
+        "trainer": {"max_steps": 20, "limit_val_batches": 2,
+                    "limit_val_loss_batches": 2, "checkpointing": False,
+                    "log_dir": str(root / "runs"), "run_name": "scan",
+                    "seed": SEED},
+    })
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    scan_trainer, scan_val = cli.run(["fit", "--config", str(config_b),
+                                      "--device", str(dev)])
+    scan_fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    index = scan_trainer.index
+    check(index.method == "scan",
+          f"eval index at 2^17 items is {index.method!r}, not scan")
+    check(launches["packed_scan"] > 0,
+          "the eval search never launched packed_scan")
+    check(all(0.0 <= v <= 1.0 for k, v in scan_val.items()
+              if "/Retrieval" in k), "scan val metrics out of [0, 1]")
+    scan_ms, batch, users = eval_search_ms(scan_trainer)
+    top_k = scan_trainer.config.top_k
+    _, got_ids = index.search(users, top_k=top_k,
+                              exclude_positions=batch["exclude_positions"])
+    got_pos = torch.tensor(
+        [[index._id_to_pos[int(i)] for i in row] for row in got_ids],
+        device=dev,
+    )
+    n = len(index)
+    excl = [[int(p) for p in row if p < n]
+            for row in batch["exclude_positions"]]
+    dense = (scaled_queries(index, users).float()
+             @ index.corpus.float().T)
+    tight = quantum_scaled(index_quantum_bits(index)) + 1e-6
+    check_exclusion_search(dense, index._scan_setup()[2], excl, got_pos,
+                           top_k, tight, "trainer eval search")
+    print(f"training (b): {SCAN_CORPUS['num_movies']} movies, "
+          f"{len(scan_trainer.data.train_user_pos)} train interactions "
+          f"(corpus generated and prepared in {scan_prep_s:.2f} s); "
+          f"`cli fit` of 20 steps + validation in {scan_fit_s:.2f} s on "
+          f"the {index.method!r} index; {len(got_ids)} eval queries with "
+          f"their train histories excluded == dense top-{top_k} of the "
+          f"lane-pair survivors within one key quantum ({tight:.2e} "
+          f"scaled) [{card}]")
+    print(f"training (b) kernel launches: {launches}")
+    print(f"training eval search, scan index of {n} items: "
+          f"{scan_ms:.3f} ms a batch of {len(got_ids)} users, top-"
+          f"{top_k} with the train histories excluded [{card}]")
 
-        # (c) serve what (a) trained
-        engine = RecommenderEngine(artifact, device=dev)
-        n = trainer.data.num_items
-        for pos in (0, n // 3, 2 * n // 3, n - 1):
-            item_id = int(trainer.data.item_ids[pos])
-            text = trainer.data.item_texts[pos]
-            served = engine.search_items(Query(text=text),
-                                         exclude_item_ids=[item_id], top_k=20)
-            _, want = trainer.index.search(trainer.embed_texts([text]),
-                                           top_k=20, exclude_ids=[[item_id]])
-            check([c.movie_id for c in served] == want[0].tolist(),
-                  f"served answer for item {item_id} differs from the "
-                  "trainer's search")
-        print(f"training (c): the saved artifact serves from "
-              f"RecommenderEngine on the card; 4 item queries with the item "
-              f"excluded == the trainer's own index search [{card}]")
-    finally:
-        tmp.cleanup()
+    # (c) serve what (a) trained
+    engine = RecommenderEngine(artifact, device=dev)
+    n = trainer.data.num_items
+    for pos in (0, n // 3, 2 * n // 3, n - 1):
+        item_id = int(trainer.data.item_ids[pos])
+        text = trainer.data.item_texts[pos]
+        served = engine.search_items(Query(text=text),
+                                     exclude_item_ids=[item_id], top_k=20)
+        _, want = trainer.index.search(trainer.embed_texts([text]),
+                                       top_k=20, exclude_ids=[[item_id]])
+        check([c.movie_id for c in served] == want[0].tolist(),
+              f"served answer for item {item_id} differs from the "
+              "trainer's search")
+    print(f"training (c): the saved artifact serves from "
+          f"RecommenderEngine on the card; 4 item queries with the item "
+          f"excluded == the trainer's own index search [{card}]")
     return {"launches": {name: launches_a[name] + launches[name]
                          for name in kernels.LAUNCHES},
             "timing": timing}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the history tower
+# ---------------------------------------------------------------------------
+# the repo's quality flagship (runs/ml1m-r4-flagship-s*/config.json): the
+# reference text tower fused with the user's 16 most recent rated items,
+# trained with InfoNCE over 4 negatives
+FLAGSHIP = dict(user_tower="history", max_history=16, history_layers=1,
+                use_history_ratings=True,
+                train_loss="InfomationNoiseContrastiveEstimationLoss",
+                num_negatives=4)
+# every item channel at once on the 2^17-item catalog: index rows of
+# 32 + 1 (bias) + 128 (CF factors) + 1 (popularity) = 162 columns
+WIDE = dict(FLAGSHIP, item_id_embedding="bloom", item_bias=True, max_bag=16,
+            cf_rank=128)
+SERVE_USERS = 64
+
+
+def post_json(base: str, endpoint: str, payload: dict):
+    req = urllib.request.Request(
+        f"{base}/{endpoint}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST",
+    )
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def user_answer(trainer, upos: int, excl: list[int], index=None,
+                top_k: int = 20):
+    """The trainer's own query vector of a dataset user and its search
+    (on `index`, default the trainer's) with `excl` excluded."""
+    vec = trainer.eval_user_embeddings(np.array([upos]))
+    index = trainer.index if index is None else index
+    _, ids = index.search(vec, top_k=top_k, exclude_ids=[excl])
+    return vec, ids[0].tolist()
+
+
+def served_user_answers(engine, user_ids) -> dict:
+    """Each user's served answer (`recommend_with_user_id`, top 20) and
+    the engine's query vector for that user."""
+    service = RecService(engine)
+    return {
+        user_id: (
+            [c.movie_id for c in service.recommend_with_user_id(user_id,
+                                                                top_k=20)],
+            torch.tensor(engine.embed_user_query(
+                engine.get_user(user_id)).embedding),
+        )
+        for user_id in user_ids
+    }
+
+
+def check_served_users(trainer, engine, served, what, index=None):
+    """Each served user's query vector (`served_user_answers`) against the
+    trainer's own, and the served answer against the search of that
+    vector on `index` (default the trainer's); returns the largest vector
+    difference."""
+    pos_of = {int(u): p for p, u in enumerate(trainer.data.user_ids)}
+    worst = 0.0
+    for user_id, (got, got_vec) in served.items():
+        user = engine.get_user(user_id)
+        excl = [a.movie_id for a in (user.history or []) + (user.target or [])]
+        vec, want = user_answer(trainer, pos_of[user_id], excl, index)
+        diff = (got_vec - vec[0].cpu()).abs().max().item()
+        check(diff <= 1e-5, f"{what}: served user {user_id}'s vector differs "
+              f"from the trainer's by {diff}")
+        worst = max(worst, diff)
+        check(got == want, f"{what}: served user {user_id} differs from the "
+              "search of the trainer's vector")
+    return worst
+
+
+def fit_history(root, name, model, data_dir, trainer_kw, artifact, dev):
+    config = write_json(root / f"{name}.json", {
+        "model": model, "data": {"data_dir": str(data_dir)},
+        "trainer": {"log_dir": str(root / "runs"), "run_name": name,
+                    "seed": SEED, **trainer_kw},
+    })
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer, val = cli.run(["fit", "--config", str(config), "--device",
+                            str(dev), "--save_artifact", str(artifact)])
+    return trainer, val, time.perf_counter() - t0, kernels.launch_counts()
+
+
+def phase_history(dev, card: str, root: pathlib.Path) -> dict:
+    """(a) the flagship history tower at full width on phase 9's ML-1M
+    size corpus: 300 steps through `cli fit` with two validations, 3 card
+    steps against the CPU at bf16 and f32, the step's time at batch 32 and
+    1024, and the saved artifact served over HTTP (`recommend_with_user_id`
+    for 64 users in one burst, `recommend_with_user` with a request
+    history), every answer equal to the trainer's own; (b) every item
+    channel on phase 9's 2^17-item catalog: 20 steps and a validation on
+    the scan index at 162 columns (kernel 1), its answers against dense
+    scores, kernel 1 at that width against its plain version, and the
+    artifact served."""
+    from xfmr_rec_torch.models.history import init_two_tower
+
+    launches = {name: 0 for name in kernels.LAUNCHES}
+
+    def add(counts):
+        for name in launches:
+            launches[name] += counts[name]
+
+    # (a) the flagship
+    steps_per_epoch = int(load_table(root / "ml1m", "ratings")["is_train"]
+                          .sum()) // 32
+    artifact = root / "history_artifact"
+    trainer, val, fit_s, counts = fit_history(
+        root, "history", FLAGSHIP, root / "ml1m",
+        {"max_steps": TRAIN_STEPS, "log_every_steps": 25,
+         "val_check_interval": (TRAIN_STEPS // 3 + 0.5) / steps_per_epoch},
+        artifact, dev,
+    )
+    add(counts)
+    config = trainer.config
+    check(config == train_mod.TrainConfig(**FLAGSHIP), "not the flagship")
+    check(trainer.global_step == TRAIN_STEPS, "history fit stopped early")
+    rows = [json.loads(line) for line in
+            (trainer.logger.log_dir / "metrics.jsonl").read_text()
+            .splitlines()]
+    loss = "train/InfomationNoiseContrastiveEstimationLoss"
+    train_rows = [r for r in rows if loss in r]
+    val_rows = [r for r in rows if "val/RetrievalNormalizedDCG" in r]
+    check(len(train_rows) == TRAIN_STEPS // 25, "history train rows missing")
+    check(len(val_rows) >= 2, f"{len(val_rows)} history validations, not 2")
+    check(all(math.isfinite(v) for r in rows for v in r.values()),
+          "a logged history value is not finite")
+    retrieval = {k: v for k, v in val.items() if "/Retrieval" in k}
+    check(len(retrieval) == 6
+          and all(0.0 <= v <= 1.0 for v in retrieval.values()),
+          f"history val metrics out of [0, 1]: {retrieval}")
+    init = init_two_tower(config, SEED).state_dict()
+    moved = {n: (v.cpu() - init[n]).abs().max().item()
+             for n, v in trainer.state.model.state_dict().items()}
+    check(min(v for n, v in moved.items() if n.startswith("fusion."))
+          > 0 and max(moved.values()) > 0, "the fusion did not train")
+    print(f"history (a) fit: {TRAIN_STEPS} steps of the flagship (history "
+          f"tower, 16 slots with ratings, 1 fusion layer, InfoNCE over 4 "
+          f"negatives, the reference text tower at bf16, batch 32) through "
+          f"`cli fit` in {fit_s:.2f} s host wall with {len(val_rows)} "
+          f"validations on the {trainer.index.method!r} index; first / last "
+          f"logged loss {train_rows[0][loss]:.4f} / {train_rows[-1][loss]:.4f}"
+          f", grad_norm {train_rows[-1]['train/grad_norm']:.4f}; val "
+          + ", ".join(f"{k.split('/Retrieval')[1]} {v:.4f}"
+                      for k, v in retrieval.items()) + f" [{card}]")
+    print(f"history (a) kernel launches: {counts}")
+
+    batches = [b for _, b in zip(range(3), trainer.data.train_batches(0))]
+    worst = check_card_steps_match_cpu(config, batches, dev, rounding=True)
+    leaves = worst["bf16_leaves"]
+    print(f"history card vs cpu: 3 steps (dropout off) from one init agree; "
+          f"float32: every parameter within "
+          f"{CARD_VS_CPU['float32'][1]:.0e} (largest {worst['float32']:.3e}); "
+          f"bfloat16: largest difference {worst['bfloat16']:.3e}; of "
+          f"{sum(leaf['moved'] for leaf in leaves)} moved components "
+          f"{sum(leaf['zeros'] for leaf in leaves)} are within bf16 rounding "
+          f"of zero (read from the CPU), "
+          f"{sum(leaf['parted_zeros'] for leaf in leaves)} of them parted "
+          f"beyond {CARD_VS_CPU['bfloat16'][1]:.0e}; of the other "
+          f"{sum(leaf['held'] for leaf in leaves)}, "
+          f"{sum(leaf['parted_held'] for leaf in leaves)} parted (at most "
+          f"{LEAF_PARTED_SHARE} of a leaf) [{card}]")
+    print("  leaf: moved, within rounding of zero (parted), other (parted)")
+    for leaf in leaves:
+        print(f"  {leaf['name']}: {leaf['moved']}, {leaf['zeros']} "
+              f"({leaf['parted_zeros']}), {leaf['held']} "
+              f"({leaf['parted_held']})")
+    big = RecDataModule(dataclasses.replace(trainer.data.config,
+                                            batch_size=1024))
+    big.setup()
+    timing = {
+        32: train_step_ms(config, batches[0], dev, steps=50),
+        1024: train_step_ms(config, next(big.train_batches(0)), dev,
+                            steps=10),
+    }
+    for size, t in timing.items():
+        idle = ("not measured (the profiler recorded no device time)"
+                if t["idle"] is None else f"{t['idle']:.4f}")
+        print(f"history train step at batch {size} ({(3 + 16) * size} text "
+              f"rows a step): {t['ms']:.3f} ms (CUDA events, dropout on); "
+              f"profiler: device busy {t['busy_ms']:.3f} ms and "
+              f"{t['kernels']} device operations a step (profiled wall "
+              f"{t['wall_ms']:.3f} ms), device idle share {idle} [{card}]")
+        for dev_ms, count, name in t["top"]:
+            print(f"  {dev_ms:9.3f} ms  x{count:<4d} {name[:100]}")
+
+    # (a) the artifact over HTTP
+    kernels.reset_launch_counts()
+    engine = RecommenderEngine(artifact, device=dev)
+    service = RecService(engine)
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    users = [int(u) for u in engine.users.arrays["user_id"][:SERVE_USERS]]
+    try:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SERVE_USERS) as pool:
+            bodies = list(pool.map(
+                lambda u: post_json(base, "recommend_with_user_id",
+                                    {"user_id": u, "top_k": 20}), users))
+        burst_s = time.perf_counter() - t0
+        lat = []
+        for u in users:
+            t0 = time.perf_counter()
+            post_json(base, "recommend_with_user_id",
+                      {"user_id": u, "top_k": 20})
+            lat.append((time.perf_counter() - t0) * 1e3)
+        # a request history: the user's 5 most recent items and an unknown
+        # movie id, under no user id
+        req_user = engine.get_user(users[7])
+        recent = req_user.history[-5:]
+        request = {"user_text": req_user.user_text,
+                   "history": [dataclasses.asdict(a) for a in recent]
+                   + [dict(dataclasses.asdict(recent[0]), movie_id=-7)]}
+        got_hist = post_json(base, "recommend_with_user",
+                             {"user": request, "top_k": 20})
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    add(kernels.launch_counts())
+    pos_of = {int(u): p for p, u in enumerate(trainer.data.user_ids)}
+    for user_id, body in zip(users, bodies, strict=True):
+        user = engine.get_user(user_id)
+        excl = [a.movie_id for a in user.history + user.target]
+        _, want = user_answer(trainer, pos_of[user_id], excl)
+        check([c["movie_id"] for c in body] == want,
+              f"served user {user_id} differs from the trainer's search")
+    worst_vec = check_served_users(
+        trainer, engine, served_user_answers(engine, users[:8]), "history (a)")
+    # the trainer's side of the request history: positions most recent
+    # first, gathered from its f32 corpus
+    item_pos = {int(i): p for p, i in enumerate(trainer.data.item_ids)}
+    hist = np.zeros((1, 16), np.int64)
+    mask = np.zeros((1, 16), bool)
+    rates = np.zeros((1, 16), np.int64)
+    for j, a in enumerate(reversed(recent)):
+        hist[0, j], mask[0, j], rates[0, j] = item_pos[a.movie_id], True, a.rating
+    tokens = trainer.data.tokenizer.encode_batch([req_user.user_text])
+    vec = trainer.state.model.encode_users_from_corpus(
+        torch.from_numpy(tokens).to(dev),
+        trainer._corpus_f32,
+        *(torch.from_numpy(x).to(dev) for x in (hist, mask, rates)),
+    )
+    _, want = trainer.index.search(
+        vec, top_k=20, exclude_ids=[[a.movie_id for a in recent] + [-7]])
+    check([c["movie_id"] for c in got_hist] == want[0].tolist(),
+          "recommend_with_user with a request history differs from the "
+          "trainer's fusion over the same items")
+    lat.sort()
+    print(f"history (a) serving over HTTP: {SERVE_USERS} "
+          f"recommend_with_user_id requests in one burst answered in "
+          f"{burst_s * 1e3:.1f} ms wall; {SERVE_USERS} sequential requests "
+          f"p50 {lat[len(lat) // 2]:.3f} ms, max {lat[-1]:.3f} ms (host "
+          f"clock, HTTP on localhost included); every answer == the "
+          f"trainer's own user vector and search (vectors within "
+          f"{worst_vec:.1e}); recommend_with_user with a 5-item request "
+          f"history and an unknown movie id == the trainer's fusion of "
+          f"those items [{card}]")
+
+    # (b) every item channel on the 2^17-item catalog
+    wide_artifact = root / "wide_artifact"
+    wide, wide_val, wide_fit_s, counts = fit_history(
+        root, "wide", WIDE, root / "scan",
+        {"max_steps": 20, "limit_val_batches": 2,
+         "limit_val_loss_batches": 2, "checkpointing": False},
+        wide_artifact, dev,
+    )
+    add(counts)
+    index = wide.index
+    check(index.method == "scan", f"wide index is {index.method!r}")
+    check(index.dim == 32 + 1 + 128 + 1, f"wide index has {index.dim} columns")
+    check(counts["packed_scan"] > 0, "the wide eval never launched packed_scan")
+    check(all(0.0 <= v <= 1.0 for k, v in wide_val.items()
+              if "/Retrieval" in k), "wide val metrics out of [0, 1]")
+    batch = next(wide.data.eval_batches("val"))
+    users_q = wide._eval_user_embeds(batch)
+    top_k = wide.config.top_k
+    _, got_ids = index.search(users_q, top_k=top_k,
+                              exclude_positions=batch["exclude_positions"])
+    got_pos = torch.tensor(
+        [[index._id_to_pos[int(i)] for i in row] for row in got_ids],
+        device=dev)
+    n = len(index)
+    excl = [[int(p) for p in row if p < n]
+            for row in batch["exclude_positions"]]
+    scaled = scaled_queries(index, users_q)
+    dense = scaled.float() @ index.corpus.float().T
+    tight = quantum_scaled(index_quantum_bits(index)) + 1e-6
+    check_exclusion_search(dense, index._scan_setup()[2], excl, got_pos,
+                           top_k, tight, "wide eval search")
+    # kernel 1 at the widened row against its plain version
+    corpus, _, tile, true_n = index._scan_setup()
+    q_bf16 = users_q.bfloat16()
+    qnorm = torch.linalg.vector_norm(q_bf16.float(), dim=-1).max()
+    q_s, _, geom = topk.prepare_packed_scan(
+        q_bf16, corpus,
+        score_bound=torch.clamp(index._corpus_maxnorm * qnorm * 1.05,
+                                min=1e-6).float(),
+        batch_tile=len(q_bf16), corpus_tile=tile, reserve_bits=1,
+        true_num_items=true_n,
+    )
+    got_keys, got_dmax = kernels.packed_scan(q_s, corpus, None, **geom)
+    want_keys, want_dmax = topk.packed_lane_scan_plain(q_s, corpus, None,
+                                                       **geom)
+    low = geom["idx_bits"] + geom["reserve_bits"]
+    steps = max(((got_keys >> low) - (want_keys >> low)).abs().max().item(),
+                ((got_dmax >> low) - (want_dmax >> low)).abs().max().item())
+    check(steps <= 1, f"kernel 1 at D={corpus.shape[1]} is {steps} key "
+          "quanta from its plain version")
+    # each kernel key names an item (its tile bits and lane) whose plain
+    # key holds the same value within one quantum: a right value with a
+    # wrong position fails here
+    live = got_keys != 0
+    lanes = torch.arange(got_keys.shape[1], device=dev).expand_as(got_keys)
+    named = topk.unpack_positions(
+        got_keys, lanes, corpus_tile=tile, idx_bits=geom["idx_bits"],
+        lane_shuffle=geom["lane_shuffle"], reserve_bits=geom["reserve_bits"])
+    check(bool((named[live] < n).all()),
+          f"kernel 1 at D={corpus.shape[1]} names a padded item")
+    named_scores = torch.gather(q_s.float() @ corpus.float().T, 1,
+                                named.long().clamp(max=corpus.shape[0] - 1))
+    named_keys = topk._packed_keys(named_scores, 0, geom["idx_bits"],
+                                   geom["reserve_bits"],
+                                   biased=geom["bias_in_dot"])
+    named_steps = ((got_keys >> low) - (named_keys >> low))[live].abs().max()
+    check(named_steps.item() <= 1, f"kernel 1 at D={corpus.shape[1]}: a key "
+          f"is {named_steps.item()} quanta from the plain key of the item "
+          "it names")
+    b, d = q_s.shape
+    n_pad = corpus.shape[0]
+    wide_ms = cuda_ms(lambda: kernels.packed_scan(q_s, corpus, None, **geom))
+    wide_plain_ms = cuda_ms(
+        lambda: topk.packed_lane_scan_plain(q_s, corpus, None, **geom),
+        iters=2)
+    wide_bytes = b * d * 2 + n_pad * d * 2 + b * 2 * tile * 4 + b * 4
+    wide_bound = max(wide_bytes / HBM_BYTES_PER_S * 1e3,
+                     2 * b * n_pad * d / BF16_FLOPS * 1e3,
+                     7 * b * n_pad / INT32_OPS * 1e3)
+    print(f"history (b) fit: every item channel (Bloom ids, bias, a 16-item "
+          f"CF bag, cf_rank 128) on {n} movies, 20 steps + validation "
+          f"through `cli fit` in {wide_fit_s:.2f} s host wall (CF "
+          f"factorization included); the {index.method!r} index at D="
+          f"{index.dim}: {len(got_ids)} eval queries with the train "
+          f"histories excluded == dense top-{top_k} of the lane-pair "
+          f"survivors within one key quantum ({tight:.2e} scaled) [{card}]")
+    print(f"history (b) kernel launches: {counts}")
+    print(f"packed_scan at the widened row B={b} N={n_pad} D={d} ct={tile} "
+          f"(trained index, eval users): keys and dmax within {steps} key "
+          f"quantum of the plain version, and each key within "
+          f"{named_steps.item()} of the plain key of the item it names; "
+          f"kernel {wide_ms:.3f} ms, plain "
+          f"{wide_plain_ms:.3f} ms, bound {wide_bound:.3f} ms [{card}]")
+    kernels.reset_launch_counts()
+    wide_engine = RecommenderEngine(wide_artifact, device=dev)
+    served = served_user_answers(
+        wide_engine, [int(u) for u in wide_engine.users.arrays["user_id"][:8]])
+    add(kernels.launch_counts())
+    # the loaded scan index takes its score bound from the stored bf16
+    # rows, the trainer's from its f32 rows: the keys' scale differs in the
+    # last bits, so the served answers are held against the loaded index
+    worst_wide = check_served_users(wide, wide_engine, served, "history (b)",
+                                    index=wide_engine.index)
+    print(f"history (b) serving: the saved artifact (CF channel, bias, bag) "
+          f"answers recommend_with_user_id for 8 users; each query vector "
+          f"== the trainer's own (within {worst_wide:.1e}) and each answer == "
+          f"the loaded index's search of it [{card}]")
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -1803,13 +2275,16 @@ def main() -> int:
     timings = phase_timings(guaranteed, select, certified, card)
     phase_profile(guaranteed, card, "fused")
     phase_profile(guaranteed, card, "f32")
-    training = phase_training(dev, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        training = phase_training(dev, card, pathlib.Path(tmp))
+        history = phase_history(dev, card, pathlib.Path(tmp))
 
     # launches on the main paths only: each path ran with the counts set
     # to 0 just before it and read just after
     launches = {
         name: sum(phase["launches"][name]
-                  for phase in (serving, guaranteed, certified, training))
+                  for phase in (serving, guaranteed, certified, training,
+                                history))
         for name in kernels.LAUNCHES
     }
     for name, count_ in launches.items():

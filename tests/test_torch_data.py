@@ -226,10 +226,10 @@ def test_prepare_data_generates_then_reuses(tmp_path):
 
 
 def test_refused_and_missing(tmp_path):
-    with pytest.raises(NotImplementedError, match="history tower"):
-        PortDataModule(PortDataConfig(max_history=4))
-    with pytest.raises(NotImplementedError, match="history tower"):
-        PortDataModule(PortDataConfig(max_bag=4))
+    """History and bag widths are accepted now; an unknown tokenizer and
+    a missing corpus with no synthetic fallback are refused."""
+    assert PortDataModule(PortDataConfig(max_history=4)).config.max_history
+    assert PortDataModule(PortDataConfig(max_bag=4)).config.max_bag == 4
     with pytest.raises(ValueError, match="tokenizer"):
         PortDataModule(PortDataConfig(tokenizer="wordpiece"))
     data = PortDataModule(PortDataConfig(data_dir=str(tmp_path / "none"),

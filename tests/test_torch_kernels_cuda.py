@@ -9,6 +9,8 @@ Run them on a card with
 not need.)
 """
 
+import dataclasses
+import math
 import pathlib
 import subprocess
 
@@ -62,6 +64,13 @@ def card():
         # the serving tower's width, and tiles narrower than a block's lanes
         dict(dim=32, corpus_tile=64),
         dict(dim=32, corpus_tile=64, bias_in_dot=True, lane_shuffle=5),
+        # the history tower's index rows: + bias (33), + CF factors and
+        # popularity (161), both (162); rows off the 16-byte grid
+        dict(dim=33),
+        dict(dim=161, lane_shuffle=1),
+        dict(dim=162, true_num_items=1500),
+        dict(dim=161, bias_in_dot=True),
+        dict(dim=161, int8=True),
     ],
 )
 def test_packed_scan_matches_plain(card, opts):
@@ -98,6 +107,8 @@ def test_packed_scan_matches_plain(card, opts):
         # the serving tower's width, tiles narrower than a block's lanes
         dict(dim=32, corpus_tile=64, splits_scale=8),
         dict(dim=32, int8=True),
+        dict(dim=33),
+        dict(dim=162, lane_shuffle=3),
     ],
 )
 def test_packed_scan_split_over_blocks_matches_plain(card, opts, splits):
@@ -514,3 +525,85 @@ def test_train_steps_on_the_card_match_the_cpu(
     for name, value in cpu_p.items():
         torch.testing.assert_close(card_p[name].cpu(), value, rtol=0,
                                    atol=param_tol)
+
+
+@pytest.mark.parametrize(
+    "compute_dtype,loss_tol,param_tol",
+    [("bfloat16", (3e-2, 1e-2), 5e-5), ("float32", (1e-4, 1e-5), 5e-5)],
+)
+def test_history_train_steps_on_the_card_match_the_cpu(
+    card, tmp_path, compute_dtype, loss_tol, param_tol
+):
+    """The flagship's history tower (InfoNCE, 16 history slots, ratings)
+    with every item channel (Bloom ids, bias, CF bag): three train steps
+    on the card and on the CPU from one init. Losses and grad_norm within
+    `loss_tol`; at f32 every parameter within `param_tol`. At bf16 Adam's
+    first steps move each component by about lr in its gradient's sign,
+    so components whose gradient is within bf16 rounding of zero (the
+    attention key biases: their exact gradient is 0) take opposite signs
+    on the two devices. Those are read from the CPU alone: the f32
+    gradient at the CPU run's parameters is less than 4 times its
+    distance from the bf16 gradient of the CPU's step, at some step. Of every
+    leaf's other moved components at most 1% part beyond `param_tol`
+    (none in a leaf of fewer than 100), and all stay within
+    2 * lr * steps."""
+    from xfmr_rec_torch.data.module import DataConfig, RecDataModule
+    from xfmr_rec_torch.training import module as train_mod
+
+    data = RecDataModule(DataConfig(data_dir=str(tmp_path), batch_size=32,
+                                    max_history=16, max_bag=16))
+    data.prepare_data()
+    data.setup()
+    batches = [b for _, b in zip(range(3), data.train_batches(0))]
+    config = train_mod.TrainConfig(
+        dropout_rate=0.0, compute_dtype=compute_dtype, user_tower="history",
+        max_history=16, train_loss="InfomationNoiseContrastiveEstimationLoss",
+        item_id_embedding="bloom", item_bias=True, max_bag=16,
+    )
+    states = [train_mod.TrainState(config, seed=0, device=d)
+              for d in ("cpu", card)]
+    init = {n: v.clone() for n, v in states[0].model.state_dict().items()}
+    config32 = dataclasses.replace(config, compute_dtype="float32")
+    ref = train_mod.TrainState(config32, seed=0, device="cpu")
+    zeros = {n: torch.zeros_like(p, dtype=torch.bool)
+             for n, p in states[0].model.named_parameters()}
+    for batch in batches:
+        ref.model.load_state_dict(states[0].model.state_dict())
+        ref.model.zero_grad(set_to_none=True)
+        train_mod.compute_batch_losses(
+            ref.model, train_mod.batch_to_device(batch, "cpu"), config32,
+        )[config.train_loss].backward()
+        cpu_m, card_m = (
+            train_mod.train_step(s, train_mod.batch_to_device(batch, s.device))
+            for s in states
+        )
+        for key in cpu_m:
+            torch.testing.assert_close(card_m[key].cpu(), cpu_m[key],
+                                       rtol=loss_tol[0], atol=loss_tol[1])
+        for (name, p16), p32 in zip(states[0].model.named_parameters(),
+                                    ref.model.parameters(), strict=True):
+            g32 = p32.grad if p32.grad is not None else torch.zeros_like(p32)
+            g16 = p16.grad if p16.grad is not None else torch.zeros_like(p16)
+            zeros[name] |= g32.abs() < 4 * (g16 - g32).abs()
+    cpu_p, card_p = (s.model.state_dict() for s in states)
+    if compute_dtype == "float32":
+        for name, value in cpu_p.items():
+            torch.testing.assert_close(card_p[name].cpu(), value, rtol=0,
+                                       atol=param_tol)
+        return
+    lr = config.learning_rate
+    held_total = 0
+    for name, value in cpu_p.items():
+        got = card_p[name].cpu()
+        diff = (got - value).abs()
+        assert diff.max().item() <= 2 * lr * len(batches) * 1.01, name
+        if name not in zeros:
+            assert diff.max().item() <= param_tol, name
+            continue
+        moved = torch.maximum((value - init[name]).abs(),
+                              (got - init[name]).abs()) > lr / 2
+        held = moved & ~zeros[name]
+        parted = int((held & (diff > param_tol)).sum())
+        assert parted <= int(0.01 * int(held.sum())), (name, parted)
+        held_total += int(held.sum())
+    assert held_total > 10_000

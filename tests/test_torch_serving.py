@@ -3,8 +3,10 @@
 The artifact is trained and saved by the JAX package exactly as
 tests/test_serving.py does; only the copy's `index/index.json` is
 rewritten to `"method": "scan"`, so both engines run the packed scan at
-this small size. The port loads it without JAX (portable.json +
-encoder.npz + index/) and must answer the same ids.
+this small size, and its `users.parquet` is converted to the port's
+`users.npz` with `UserStore.from_rows`. The port loads it without JAX
+(portable.json + encoder.npz + index/ + users.npz) and must answer the
+same ids.
 """
 
 import concurrent.futures
@@ -15,6 +17,7 @@ import urllib.error
 import urllib.request
 
 import numpy as np
+import pandas as pd
 import pytest
 
 from tests.test_serving import build_artifact
@@ -26,6 +29,7 @@ from xfmr_rec_torch.serving.service import (
     dispatch,
     make_server,
 )
+from xfmr_rec_torch.serving.users import UserStore
 from xfmr_rec_tpu.serving.engine import RecommenderEngine as RefEngine
 from xfmr_rec_tpu.serving.schemas import Query as RefQuery
 
@@ -41,6 +45,9 @@ def artifact(tmp_path_factory):
     meta = json.loads(index_json.read_text())
     meta["method"] = "scan"
     index_json.write_text(json.dumps(meta))
+    UserStore.from_rows(
+        pd.read_parquet(path / "users.parquet").to_dict("records")
+    ).save(path / "users.npz")
     return path
 
 
@@ -132,8 +139,11 @@ def test_dispatch_and_not_ported(engines):
                    {"query": {"text": "comedy"}, "top_k": 3})
     assert len(out) == 3 and {"movie_id", "movie_text", "score"} <= set(out[0])
     assert dispatch(service, "model_name", {}) == "xfmr_rec_tpu"
-    with pytest.raises(NotImplementedError, match="user store"):
-        dispatch(service, "user_id", {"user_id": 1})
+    user_id = int(port.users.arrays["user_id"][0])
+    assert dispatch(service, "user_id", {"user_id": user_id})[
+        "user_id"] == user_id
+    with pytest.raises(NotImplementedError, match="BM25"):
+        dispatch(service, "search_items_text", {"query": "comedy"})
 
 
 def test_http_round_trip(engines):
@@ -168,7 +178,17 @@ def test_http_round_trip(engines):
         assert [c["movie_id"] for c in body] == [c.movie_id for c in want]
         assert post("item_id", {"item_id": item_id})[0] == 200
         assert post("item_id", {"item_id": 99999})[0] == 404
-        assert post("recommend_with_user_id", {"user_id": 1})[0] == 501
+        user_id = int(port.users.arrays["user_id"][2])
+        status, body = post("recommend_with_user_id",
+                            {"user_id": user_id, "top_k": 5})
+        assert status == 200
+        user = ref.get_user(user_id)
+        seen = [a.movie_id for a in (user.history or []) + (user.target or [])]
+        want = ref.search_items(ref.embed_user_query(user),
+                                exclude_item_ids=seen, top_k=5)
+        assert [c["movie_id"] for c in body] == [c.movie_id for c in want]
+        assert post("search_items_text", {"query": "comedy"})[0] == 501
+        assert post("add_items", {"items": []})[0] == 501
         assert post("drop_tables", {})[0] == 404
         with urllib.request.urlopen(f"{base}/healthz", timeout=30) as resp:
             assert json.loads(resp.read()) == {"status": "ok"}

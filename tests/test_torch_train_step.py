@@ -37,6 +37,7 @@ import torch
 
 from xfmr_rec_torch.models import convert
 from xfmr_rec_torch.models.encoder import dropout, init_encoder
+from xfmr_rec_torch.models.history import TwoTowerModel
 from xfmr_rec_torch.training import module as port_module
 from xfmr_rec_tpu.data import DataConfig, RecDataModule
 from xfmr_rec_tpu.data.prepare import prepare_movielens
@@ -266,10 +267,17 @@ def test_fresh_init_scales(std):
 
 
 def test_remat_and_two_tower_refused():
+    """remat stays refused (for the fusion layers too); two-tower configs
+    now build a `TwoTowerModel`."""
     with pytest.raises(NotImplementedError, match="remat"):
-        port_module.TrainState(port_module.TrainConfig(remat=True))
-    with pytest.raises(NotImplementedError, match="two-tower"):
-        port_module.TrainState(port_module.TrainConfig(item_bias=True))
+        port_module.TrainState(port_module.TrainConfig(remat=True), device=CPU)
+    with pytest.raises(NotImplementedError, match="fusion"):
+        port_module.TrainState(port_module.TrainConfig(
+            remat=True, user_tower="history"), device=CPU)
+    state = port_module.TrainState(
+        port_module.TrainConfig(item_bias=True), device=CPU
+    )
+    assert isinstance(state.model, TwoTowerModel)
     with pytest.raises(ValueError, match="train_loss"):
         port_module.TrainConfig(train_loss="NoSuchLoss")
     with pytest.raises(ValueError, match="total_steps"):

@@ -186,7 +186,8 @@ def test_artifact_serves_in_both_packages(data_dir, tmp_path, tokenizer):
     assert json.loads((path / "processors.json").read_text()).keys() == {
         "model", "data", "step", "best_metric"
     }
-    assert not (path / "encoder.msgpack").exists()
+    assert (path / "encoder.msgpack").exists()
+    assert (path / "users.npz").exists()
     assert not (path / "users.parquet").exists()
     assert (path / "vocab.json").exists() == (tokenizer == "vocab")
     engine = PortEngine(path, device=CPU, warmup=False)
@@ -255,12 +256,27 @@ def test_cli_resume_and_test(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize(
+    "model",
+    [
+        dict(user_tower="history"),
+        dict(item_bias=True),
+        dict(item_id_embedding="bloom"),
+        dict(cf_rank=4),
+    ],
+)
+def test_two_tower_and_cf_configs_accepted(tmp_path, model):
+    trainer = PortTrainer(
+        PortTrainConfig(**model),
+        data=PortDataConfig(data_dir=str(tmp_path)),
+        trainer_config=PortTrainerConfig(log_dir=str(tmp_path)),
+        device=CPU,
+    )
+    assert trainer.config.cf_rank == model.get("cf_rank", 0)
+
+
+@pytest.mark.parametrize(
     "model,trainer,match",
     [
-        (dict(user_tower="history"), {}, "two-tower"),
-        (dict(item_bias=True), {}, "two-tower"),
-        (dict(item_id_embedding="bloom"), {}, "two-tower"),
-        (dict(cf_rank=4), {}, "CF channel"),
         (dict(remat=True), {}, "remat"),
         ({}, dict(mesh=True), "multi-device"),
         ({}, dict(model_parallel=2), "multi-device"),
@@ -278,14 +294,18 @@ def test_refused_configs_raise(tmp_path, model, trainer, match):
         )
 
 
-def test_refused_data_and_predict():
-    with pytest.raises(NotImplementedError, match="history tower"):
-        port_cli.build_trainer(
-            {**port_cli.default_config(),
-             "data": dataclasses.asdict(PortDataConfig(max_history=8))},
-            device=CPU,
-        )
-    with pytest.raises(SystemExit, match="user store"):
+def test_refused_data_and_predict(tmp_path):
+    """History fields in the data section now build; predict (parquet
+    output) and unknown options are refused."""
+    trainer = port_cli.build_trainer(
+        {**port_cli.default_config(),
+         "data": dataclasses.asdict(PortDataConfig(max_history=8)),
+         "trainer": dataclasses.asdict(
+             PortTrainerConfig(log_dir=str(tmp_path)))},
+        device=CPU,
+    )
+    assert trainer.data.config.max_history == 8
+    with pytest.raises(SystemExit, match="parquet"):
         port_cli.run(["predict", "--device", CPU])
     with pytest.raises(SystemExit, match="unknown option"):
         port_cli.run(["fit", "--model.no_such_field", "1"])

@@ -1,6 +1,6 @@
 """Fixed-shape batch pipeline + data module facade.
 
-Port of `xfmr_rec_tpu/data/module.py` for the text tower, on numpy only:
+Port of `xfmr_rec_tpu/data/module.py`, on numpy only:
 every unique text is tokenized once at setup, token matrices stay host
 numpy arrays, and batches are fixed-shape integer arrays gathered by
 index. For the same data and seed the batches are the reference's, field
@@ -17,10 +17,13 @@ by field and bit for bit.
   holdout with graded ratings.
 - LogQ: per-candidate sampling log-probabilities (frequency-based for
   in-batch positives, uniform for sampled negatives).
-
-The history-tower fields (`max_history > 0`, `max_bag > 0`) are refused:
-they belong to the history tower, which is not ported yet (ROADMAP.md,
-Queue 1 item 7).
+- History (`max_history > 0`): train rows carry the user's most recent
+  `max_history` train interactions strictly before the row (tokens,
+  mask, ratings, movie_rns), most-recent-first; eval rows carry the
+  user's full train history as corpus positions (padded slots clipped
+  to 0) for the gather from the corpus matrix.
+- CF bag (`max_bag > 0`): the user's most recent `max_bag` train items
+  (movie_rn, rating, mask); train rows mask their own positive out.
 """
 
 from __future__ import annotations
@@ -124,12 +127,6 @@ class RecDataModule:
         if cfg.tokenizer not in ("hashing", "vocab"):
             msg = f"unknown tokenizer {cfg.tokenizer!r}"
             raise ValueError(msg)
-        if cfg.max_history > 0 or cfg.max_bag > 0:
-            msg = (
-                "max_history > 0 and max_bag > 0 feed the history tower, "
-                "which is not ported yet (ROADMAP.md, Queue 1 item 7)"
-            )
-            raise NotImplementedError(msg)
         self.tokenizer = (
             HashingTokenizer(
                 TokenizerConfig(
@@ -250,6 +247,11 @@ class RecDataModule:
                 self.train_user_pos, self.train_item_pos
             )
         }
+        if cfg.max_history > 0:
+            self._build_history_arrays()
+        if cfg.max_bag > 0:
+            self._build_bag_arrays()
+
         pos_rows = [
             np.asarray(self._train_items_by_user.get(u, []), dtype=np.int64)
             + 1
@@ -319,6 +321,84 @@ class RecDataModule:
             self.num_users, self.num_items, len(self.train_user_pos),
         )
 
+    def _train_blocks(self) -> list[np.ndarray]:
+        """Train-row indices split into each user's contiguous,
+        time-ascending block."""
+        num_rows = len(self.train_user_pos)
+        if num_rows == 0:
+            return []
+        boundaries = np.flatnonzero(np.diff(self.train_user_pos) != 0) + 1
+        return np.split(np.arange(num_rows), boundaries)
+
+    def _build_history_arrays(self) -> None:
+        """Causal history tables: `train_hist_pos[t, j]` = the item position
+        of the (j+1)-th most recent train interaction of row t's user
+        strictly before row t (-1: none), with its rating; `user_hist_pos`
+        = each user's most recent `max_history` train items, the
+        serving-time input."""
+        hist_len = self.config.max_history
+        num_rows = len(self.train_user_pos)
+        self.train_hist_pos = np.full((num_rows, hist_len), -1, np.int64)
+        self.train_hist_rating = np.zeros((num_rows, hist_len), np.int32)
+        self.user_hist_pos = np.full((self.num_users, hist_len), -1, np.int64)
+        self.user_hist_rating = np.zeros((self.num_users, hist_len), np.int32)
+        for block in self._train_blocks():
+            items = self.train_item_pos[block]
+            ratings = self.train_rating[block].astype(np.int32)
+            rows = len(block)
+            for back in range(min(hist_len, rows)):
+                src = np.arange(rows) - (back + 1)
+                valid = src >= 0
+                self.train_hist_pos[block[valid], back] = items[src[valid]]
+                self.train_hist_rating[block[valid], back] = ratings[
+                    src[valid]
+                ]
+            upos = int(self.train_user_pos[block[0]])
+            take = min(hist_len, rows)
+            self.user_hist_pos[upos, :take] = items[::-1][:take]
+            self.user_hist_rating[upos, :take] = ratings[::-1][:take]
+
+    def _build_bag_arrays(self) -> None:
+        """Per-user CF-bag tables: the most recent `max_bag` train items
+        and ratings, most-recent-first, -1 / 0 padded."""
+        width = self.config.max_bag
+        self.user_bag_pos = np.full((self.num_users, width), -1, np.int64)
+        self.user_bag_rating = np.zeros((self.num_users, width), np.int32)
+        for block in self._train_blocks():
+            upos = int(self.train_user_pos[block[0]])
+            items = self.train_item_pos[block][::-1][:width]
+            ratings = self.train_rating[block].astype(np.int32)[::-1][:width]
+            self.user_bag_pos[upos, : len(items)] = items
+            self.user_bag_rating[upos, : len(ratings)] = ratings
+
+    def train_history_item_ids(self, user_pos: int) -> list[int]:
+        """Item ids of one user's train interactions (the recommend-time
+        exclusion set)."""
+        return [
+            int(self.item_ids[p])
+            for p in self._train_items_by_user.get(int(user_pos), [])
+        ]
+
+    def user_history_fields(
+        self, user_pos: np.ndarray
+    ) -> dict[str, np.ndarray]:
+        """The eval-side history and bag fields of users by position:
+        corpus positions (padded slots clipped to 0), mask and ratings,
+        and the bag's movie_rns (0 = pad), ratings and mask."""
+        out = {}
+        if self.config.max_history > 0:
+            hist_pos = self.user_hist_pos[user_pos]
+            out["hist_positions"] = np.maximum(hist_pos, 0)
+            out["hist_mask"] = hist_pos >= 0
+            out["hist_ratings"] = self.user_hist_rating[user_pos]
+        if self.config.max_bag > 0:
+            bag_pos = self.user_bag_pos[user_pos]
+            bag_mask = bag_pos >= 0
+            out["bag_rns"] = ((bag_pos + 1) * bag_mask).astype(np.int32)
+            out["bag_ratings"] = self.user_bag_rating[user_pos]
+            out["bag_mask"] = bag_mask
+        return out
+
     def _build_vocab_tokenizer(
         self, base: pathlib.Path, texts: list[str]
     ) -> VocabTokenizer:
@@ -355,6 +435,7 @@ class RecDataModule:
         target: np.ndarray,
         pos_table: np.ndarray,
         sampler: NegativeItemSampler,
+        hist: tuple[np.ndarray, np.ndarray] | None = None,
     ) -> dict[str, np.ndarray]:
         """One loss-step batch (train and eval share this schema)."""
         neg_pos = sampler.draw(len(upos))
@@ -362,7 +443,7 @@ class RecDataModule:
         log_q = np.concatenate(
             [self.item_log_q_inbatch[ipos], self.item_log_q_uniform[neg_pos]]
         )
-        return {
+        batch = {
             "user_tokens": self.user_tokens[upos],
             "item_tokens": self.item_tokens[ipos],
             "neg_item_tokens": self.item_tokens[neg_pos],
@@ -371,6 +452,25 @@ class RecDataModule:
             "pos_idx": pos_table[upos],
             "log_q": log_q,
         }
+        if hist is not None:
+            hist_pos, hist_rating = hist
+            mask = hist_pos >= 0
+            # padded slots get all-PAD token rows
+            tokens = self.item_tokens[np.maximum(hist_pos, 0)]
+            batch["hist_tokens"] = (tokens * mask[..., None]).astype(
+                self.item_tokens.dtype
+            )
+            batch["hist_mask"] = mask
+            batch["hist_ratings"] = hist_rating
+            batch["hist_rns"] = ((hist_pos + 1) * mask).astype(np.int32)
+        if self.config.max_bag > 0:
+            bag_pos = self.user_bag_pos[upos]
+            # padding and the row's own positive are masked out
+            bag_mask = (bag_pos >= 0) & (bag_pos != ipos[:, None])
+            batch["bag_rns"] = ((bag_pos + 1) * bag_mask).astype(np.int32)
+            batch["bag_ratings"] = self.user_bag_rating[upos]
+            batch["bag_mask"] = bag_mask
+        return batch
 
     def train_batches(self, epoch: int = 0) -> Iterator[dict[str, np.ndarray]]:
         """Shuffled fixed-shape training batches with sampled negatives;
@@ -387,6 +487,11 @@ class RecDataModule:
                 self.train_rating[take],
                 self.user_pos_idx,
                 self._neg_sampler,
+                hist=(
+                    (self.train_hist_pos[take], self.train_hist_rating[take])
+                    if cfg.max_history > 0
+                    else None
+                ),
             )
 
     def eval_interaction_batches(
@@ -404,12 +509,20 @@ class RecDataModule:
             indices = np.resize(indices, batch)
         for start in range(0, len(indices) - batch + 1, batch):
             take = indices[start : start + batch]
+            upos = upos_all[take]
             yield self._assemble_loss_batch(
-                upos_all[take],
+                upos,
                 ipos_all[take],
                 rating_all[take],
                 self.user_holdout_pos_idx,
                 sampler,
+                # a holdout row's causal history is the user's whole
+                # train history (the split is temporal per user)
+                hist=(
+                    (self.user_hist_pos[upos], self.user_hist_rating[upos])
+                    if cfg.max_history > 0
+                    else None
+                ),
             )
 
     # ------------------------------------------------------------------
@@ -468,4 +581,5 @@ class RecDataModule:
                 "target_ids": target_ids,
                 "target_ratings": ratings,
                 "valid": valid,
+                **self.user_history_fields(take),
             }

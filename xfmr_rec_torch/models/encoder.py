@@ -116,14 +116,16 @@ class ModelConfig:
         return getattr(torch, self.compute_dtype)
 
 
+def uses_item_ids(config: ModelConfig) -> bool:
+    """True when the item tower consumes item identities (movie_rn): an
+    ID embedding or a learned popularity bias."""
+    return config.item_id_embedding != "none" or config.item_bias
+
+
 def needs_two_tower(config: ModelConfig) -> bool:
-    """True when the JAX package builds a TwoTowerModel for this config
-    (history user tower or an item-identity channel)."""
-    return (
-        config.user_tower == "history"
-        or config.item_id_embedding != "none"
-        or config.item_bias
-    )
+    """True when the model is a `TwoTowerModel` (`models/history.py`):
+    the history user tower or an item-identity channel."""
+    return config.user_tower == "history" or uses_item_ids(config)
 
 
 def l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -373,20 +375,18 @@ def _truncated_normal(
     return out * std
 
 
-def init_encoder(config: ModelConfig, seed: int = 0) -> TextEncoder:
-    """A `TextEncoder` with fresh parameters, drawn on the CPU from `seed`
-    (so every device starts from the same values) with the reference's
-    initializers: with `initializer_range` set, normal(initializer_range)
-    for every Dense kernel and embedding table (the Bloom / hash bucket
-    table too); with None, flax's defaults, lecun-normal kernels
-    (truncated normal, variance 1 / fan_in over the flattened input
-    axes) and normal(1 / sqrt(features)) tables. Biases and LayerNorm
-    offsets are 0, LayerNorm scales and hash importances 1."""
-    generator = torch.Generator().manual_seed(seed)
-    encoder = TextEncoder(config)
+def init_params_(
+    model: nn.Module, config: ModelConfig, generator: torch.Generator
+) -> None:
+    """Draw every `Dense`, `Embed` and `LayerNorm` of `model` in place with
+    the reference's initializers: with `initializer_range` set,
+    normal(initializer_range) for Dense kernels and tables; with None,
+    flax's defaults, lecun-normal kernels (truncated normal, variance
+    1 / fan_in over the flattened input axes) and normal(1 / sqrt(features))
+    tables. Biases and LayerNorm offsets are 0, LayerNorm scales 1."""
     std = config.initializer_range
     with torch.no_grad():
-        for module in encoder.modules():
+        for module in model.modules():
             if isinstance(module, Dense):
                 fan_in = math.prod(module.kernel.shape[: module._in_dims])
                 if std is None:
@@ -413,8 +413,17 @@ def init_encoder(config: ModelConfig, seed: int = 0) -> TextEncoder:
             elif isinstance(module, LayerNorm):
                 module.scale.fill_(1.0)
                 module.bias.zero_()
-        if isinstance(encoder.word_embed, CompressedEmbed) and hasattr(
-            encoder.word_embed, "importance"
-        ):
+
+
+def init_encoder(config: ModelConfig, seed: int = 0) -> TextEncoder:
+    """A `TextEncoder` with fresh parameters, drawn on the CPU from `seed`
+    (so every device starts from the same values) by `init_params_`;
+    hash importances start at 1."""
+    encoder = TextEncoder(config)
+    init_params_(encoder, config, torch.Generator().manual_seed(seed))
+    if isinstance(encoder.word_embed, CompressedEmbed) and hasattr(
+        encoder.word_embed, "importance"
+    ):
+        with torch.no_grad():
             encoder.word_embed.importance.embedding.fill_(1.0)
     return encoder

@@ -22,5 +22,8 @@ MODEL_NAME = "xfmr_rec_tpu"
 INDEX_DIR = "index"
 PROCESSORS_JSON = "processors.json"
 PORTABLE_NPZ = "encoder.npz"
+ENCODER_MSGPACK = "encoder.msgpack"
+CF_NPZ = "cf.npz"
+USERS_NPZ = "users.npz"
 PORTABLE_JSON = "portable.json"
 VOCAB_JSON = "vocab.json"

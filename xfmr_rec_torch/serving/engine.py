@@ -1,16 +1,24 @@
-"""Artifact-backed recommendation engine on the card: text tower + exact
-index.
+"""Artifact-backed recommendation engine on the card.
 
-Port of `xfmr_rec_tpu/serving/engine.py` for the text tower with
-`index_kind="exact"`. It loads the artifact `Trainer.save` writes, using
-only files that need no JAX, flax or pandas to read: `processors.json`,
-`portable.json` + `encoder.npz` (the flat encoder weights), `vocab.json`
-when the tokenizer is "vocab", and `index/`.
+Port of `xfmr_rec_tpu/serving/engine.py` with `index_kind="exact"`. It
+loads the artifact `Trainer.save` (either package's) writes, using only
+files that need no JAX, flax or pandas to read: `processors.json`; the
+text encoder from `portable.json` + `encoder.npz`, or for a two-tower
+model (history user tower, item-identity channels) the whole tree from
+`encoder.msgpack` (`utils/flax_msgpack.py`); `vocab.json` when the
+tokenizer is "vocab"; `index/`; `cf.npz` for the CF channel; and the user
+store `users.npz` (`serving/users.py`; a JAX artifact's `users.parquet`
+converts with `UserStore.from_rows`). Without a user store every user id
+is unknown.
 
-Not ported yet (ROADMAP.md, Queue 1): the history tower and item-identity
-channels (two-tower artifacts), the CF channel, IVF and sharded indexes,
-live catalog mutation, and the user store (it reads `users.parquet`,
-which needs a parquet-free replacement first).
+User queries run the model's user tower: the profile text, or for the
+history tower the profile fused with the user's most recent rated items,
+their embeddings gathered from the packaged corpus (f32 from the index's
+stored values) on the device. Query vectors are padded to the index
+width: the constant 1 paired with the bias column, the CF columns.
+
+Not ported yet (ROADMAP.md, Queue 1): IVF and sharded indexes, live
+catalog mutation and BM25 text search.
 """
 
 from __future__ import annotations
@@ -23,31 +31,45 @@ import torch
 
 from xfmr_rec_torch.device import resolve_device
 from xfmr_rec_torch.index.mips import RetrievalIndex
-from xfmr_rec_torch.models.convert import build_encoder, load_portable
+from xfmr_rec_torch.models.cf import CFChannel
+from xfmr_rec_torch.models.convert import (
+    build_encoder,
+    load_portable,
+    read_msgpack,
+    two_tower_state_from_flat,
+)
 from xfmr_rec_torch.models.encoder import ModelConfig, needs_two_tower
+from xfmr_rec_torch.models.history import TwoTowerModel
 from xfmr_rec_torch.models.tokenizer import (
     HashingTokenizer,
     TokenizerConfig,
     VocabTokenizer,
 )
 from xfmr_rec_torch.params import (
+    CF_NPZ,
+    ENCODER_MSGPACK,
     INDEX_DIR,
     PROCESSORS_JSON,
     TOP_K,
+    USERS_NPZ,
     VOCAB_JSON,
 )
 from xfmr_rec_torch.serving.schemas import (
+    Activity,
     ItemCandidate,
     ItemQuery,
     NotFoundError,
     Query,
+    UserQuery,
 )
+from xfmr_rec_torch.serving.users import UserStore
 
 _NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1)"
 
 
 class RecommenderEngine:
-    """Loads the artifact and serves embed / item search / item lookup."""
+    """Loads the artifact and serves embed / item search / lookups / the
+    user tower."""
 
     def __init__(
         self,
@@ -65,15 +87,6 @@ class RecommenderEngine:
         path = pathlib.Path(artifact_dir)
         self.manifest = json.loads((path / PROCESSORS_JSON).read_text())
         self.model_config = ModelConfig.from_dict(self.manifest["model"])
-        if needs_two_tower(self.model_config):
-            msg = (
-                "two-tower artifacts (history user tower or item-identity "
-                f"channels) are {_NOT_PORTED}"
-            )
-            raise NotImplementedError(msg)
-        if self.model_config.cf_rank > 0:
-            msg = f"the CF scoring channel is {_NOT_PORTED}"
-            raise NotImplementedError(msg)
         data_config = self.manifest.get("data", {})
         if data_config.get("tokenizer", "hashing") == "vocab":
             self.tokenizer = VocabTokenizer.load(path / VOCAB_JSON)
@@ -88,9 +101,40 @@ class RecommenderEngine:
                     ),
                 )
             )
-        _, _, state = load_portable(path)
-        self.encoder = build_encoder(self.model_config, state, self.device)
+        if needs_two_tower(self.model_config):
+            state = two_tower_state_from_flat(
+                read_msgpack(path / ENCODER_MSGPACK), self.model_config
+            )
+            self.encoder = build_encoder(
+                self.model_config, state, self.device, cls=TwoTowerModel
+            )
+        else:
+            _, _, state = load_portable(path)
+            self.encoder = build_encoder(self.model_config, state, self.device)
         self.index = RetrievalIndex.load(path / INDEX_DIR, device=self.device)
+        self.cf = None
+        if self.model_config.cf_rank > 0 and (path / CF_NPZ).exists():
+            self.cf = CFChannel.load(path / CF_NPZ)
+        # query width before the CF columns: d (+ the bias pair)
+        self._base_width = self.model_config.hidden_size + int(
+            self.model_config.item_bias
+        )
+        self._hist_corpus = None
+        if self.model_config.user_tower == "history":
+            # the stored corpus in f32, d-dim part, for the history gather:
+            # the fusion casts it to compute_dtype, so at bf16 it reads the
+            # values the trainer's f32 rows round to
+            corpus = self.index.corpus.float()
+            if self.index._scales is not None:
+                corpus = corpus * self.index._scales[0][:, None]
+            self._hist_corpus = corpus[
+                :, : self.model_config.hidden_size
+            ].contiguous()
+        self.users = (
+            UserStore.load(path / USERS_NPZ)
+            if (path / USERS_NPZ).exists()
+            else None
+        )
         if warmup:
             # first search builds the kernels and pads the corpus, so
             # the first live request does not pay for it
@@ -105,10 +149,38 @@ class RecommenderEngine:
         embedding = self.embed([query.text])[0]
         return Query(text=query.text, embedding=embedding.tolist())
 
+    # -- scoring columns (item bias, CF channel) ---------------------------
+    def _cf_query_cols(self, history: list[Activity] | None) -> np.ndarray:
+        """(rank + 1,) CF query columns: cf_weight * the unit CF vector of
+        the history's items, then cf_pop_weight for the popularity
+        column. Unknown movie ids contribute nothing."""
+        positions = [
+            self.index._id_to_pos.get(int(entry.movie_id), -1)
+            for entry in (history or [])
+        ]
+        vec = self.cf.user_vectors(
+            np.asarray(positions or [-1], dtype=np.int64)
+        )
+        return np.concatenate([
+            np.float32(self.model_config.cf_weight) * vec,
+            np.asarray([self.model_config.cf_pop_weight], np.float32),
+        ])
+
     def _pad_query_vec(self, vec: np.ndarray) -> np.ndarray:
-        """Query vector at index width. The text tower's width already
-        is the index's (the bias and CF columns belong to channels not
-        ported yet), so this only checks it."""
+        """A query vector at index width: a d-wide text vector gets the
+        constant 1 of the bias pair, and a vector without CF columns gets
+        zero CF and the popularity weight (anonymous and raw-text queries
+        rank by the learned and popularity channels alone)."""
+        if self.model_config.item_bias and vec.shape[-1] == (
+            self.model_config.hidden_size
+        ):
+            vec = np.concatenate([vec, np.ones(1, vec.dtype)])
+        if self.cf is not None and vec.shape[-1] == self._base_width:
+            vec = np.concatenate([
+                vec,
+                np.zeros(self.cf.rank, vec.dtype),
+                np.asarray([self.model_config.cf_pop_weight], vec.dtype),
+            ])
         if vec.shape[-1] != self.index.dim:
             msg = f"query width {vec.shape[-1]} != index width {self.index.dim}"
             raise ValueError(msg)
@@ -161,3 +233,84 @@ class RecommenderEngine:
 
     def process_item(self, item: ItemQuery) -> Query:
         return Query(text=item.movie_text)
+
+    # -- user store ------------------------------------------------------
+    def get_user(self, user_id: int) -> UserQuery:
+        if self.users is None:
+            msg = (
+                f"user not found: {user_id=} (the artifact has no user "
+                f"store {USERS_NPZ})"
+            )
+            raise NotFoundError(msg)
+        return self.users.get(user_id)
+
+    def process_user(self, user: UserQuery) -> Query:
+        return Query(text=user.user_text)
+
+    def _history_inputs(
+        self, entries: list[Activity], width: int, bag: bool
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The most recent `width` known items of `entries` (time-sorted),
+        most-recent-first: corpus positions (or, for the bag, movie_rns =
+        position + 1), ratings and mask, each (1, width)."""
+        cfg = self.model_config
+        pos = np.zeros((1, width), np.int32)
+        ratings = np.zeros((1, width), np.int32)
+        mask = np.zeros((1, width), bool)
+        filled = 0
+        for entry in reversed(entries):
+            if filled == width:
+                break
+            p = self.index._id_to_pos.get(int(entry.movie_id))
+            if p is None:
+                continue
+            if bag and cfg.item_id_embedding == "dense" and (
+                p + 1 >= cfg.item_id_buckets
+            ):
+                # past the trained dense table: the clipped gather would
+                # alias the last row, so it counts as unknown
+                continue
+            pos[0, filled] = p + 1 if bag else p
+            ratings[0, filled] = int(entry.rating)
+            mask[0, filled] = True
+            filled += 1
+        return pos, ratings, mask
+
+    def embed_user_query(self, user: UserQuery) -> Query:
+        """The user tower's query vector at index width: the profile text
+        (+ CF columns of its history), or the history fusion over the
+        user's most recent known rated items, most-recent-first, their
+        embeddings gathered from the packaged corpus."""
+        cfg = self.model_config
+        if cfg.user_tower != "history":
+            query = self.embed_query(self.process_user(user))
+            if self.cf is None:
+                return query
+            embedding = np.concatenate([
+                self._pad_query_vec(
+                    np.asarray(query.embedding, np.float32)
+                )[: self._base_width],
+                self._cf_query_cols(user.history),
+            ])
+            return Query(text=query.text, embedding=embedding.tolist())
+        entries = sorted(user.history or [], key=lambda e: e.datetime)
+        hist_pos, hist_rat, hist_mask = self._history_inputs(
+            entries, cfg.max_history, bag=False
+        )
+        extras = [hist_pos, hist_mask, hist_rat]
+        if cfg.max_bag > 0:
+            bag_rns, bag_rat, bag_mask = self._history_inputs(
+                entries, cfg.max_bag, bag=True
+            )
+            extras += [bag_rns, bag_rat, bag_mask]
+        tokens = self.tokenizer.encode_batch([user.user_text])
+        embedding = self.encoder.encode_users_from_corpus(
+            torch.from_numpy(tokens).to(self.device),
+            self._hist_corpus,
+            *(torch.from_numpy(x).to(self.device) for x in extras),
+        )[0].cpu().numpy()
+        if self.cf is not None:
+            embedding = np.concatenate(
+                [embedding, self._cf_query_cols(user.history)]
+            )
+        return Query(text=user.user_text, embedding=embedding.tolist())

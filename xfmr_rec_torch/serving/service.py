@@ -1,12 +1,14 @@
-"""Recommendation service: the text-tower endpoints + stdlib HTTP server.
+"""Recommendation service: the endpoints + stdlib HTTP server.
 
-Port of `xfmr_rec_tpu/serving/service.py`. The endpoints this engine can
-answer keep the reference's names, arguments and JSON shapes:
-embed_query, search_items, recommend_with_query, item_id, process_item,
-recommend_with_item, recommend_with_item_id, model_name, model_version,
-plus GET /healthz and /metrics. The user endpoints (they need the user
-store), BM25 text search and live catalog mutation answer 501 until
-their slice is ported (ROADMAP.md, Queue 1).
+Port of `xfmr_rec_tpu/serving/service.py`. The endpoints keep the
+reference's names, arguments and JSON shapes: embed_query, search_items,
+recommend_with_query, item_id, process_item, recommend_with_item,
+recommend_with_item_id, user_id, process_user, recommend_with_user,
+recommend_with_user_id (the user's history and target items excluded;
+the query vector from the model's user tower, searched as it is),
+model_name, model_version, plus
+GET /healthz and /metrics. BM25 text search and live catalog mutation
+answer 501 until their slice is ported (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from xfmr_rec_torch.serving.schemas import (
     ItemQuery,
     NotFoundError,
     Query,
+    UserQuery,
 )
 
 logger = logging.getLogger(__name__)
@@ -132,24 +135,48 @@ class RecService:
             item, exclude_item_ids=exclude_item_ids, top_k=top_k
         )
 
+    # -- users ---------------------------------------------------------
+    def user_id(self, user_id: int) -> UserQuery:
+        return self.engine.get_user(user_id)
+
+    def process_user(self, user: UserQuery) -> Query:
+        return self.engine.process_user(user)
+
+    def recommend_with_user(
+        self,
+        user: UserQuery,
+        exclude_item_ids: list[int] | None = None,
+        top_k: int = TOP_K,
+    ) -> list[ItemCandidate]:
+        exclude_item_ids = list(exclude_item_ids or [])
+        for activity in (user.history or []) + (user.target or []):
+            exclude_item_ids.append(activity.movie_id)
+        # the model's own user tower (text, or the history fusion),
+        # searched as it is: the reference passes it to
+        # recommend_with_query, which embeds the profile text again and
+        # drops the fused vector (ROADMAP.md, Queue 3)
+        query = self.engine.embed_user_query(user)
+        return self.search_items(
+            query, exclude_item_ids=exclude_item_ids, top_k=top_k
+        )
+
+    def recommend_with_user_id(
+        self,
+        user_id: int,
+        exclude_item_ids: list[int] | None = None,
+        top_k: int = TOP_K,
+    ) -> list[ItemCandidate]:
+        user = self.user_id(user_id)
+        return self.recommend_with_user(
+            user, exclude_item_ids=exclude_item_ids, top_k=top_k
+        )
+
     # -- not ported yet ------------------------------------------------
-    def user_id(self, **_: Any):
-        raise _not_ported("user_id", "the user store")
-
-    def process_user(self, **_: Any):
-        raise _not_ported("process_user", "the user store")
-
-    def recommend_with_user(self, **_: Any):
-        raise _not_ported("recommend_with_user", "the user store")
-
-    def recommend_with_user_id(self, **_: Any):
-        raise _not_ported("recommend_with_user_id", "the user store")
-
     def search_items_text(self, **_: Any):
         raise _not_ported("search_items_text", "BM25 text search")
 
     def search_users_text(self, **_: Any):
-        raise _not_ported("search_users_text", "BM25 and the user store")
+        raise _not_ported("search_users_text", "BM25 text search")
 
     def add_items(self, **_: Any):
         raise _not_ported("add_items", "live catalog mutation")
@@ -255,9 +282,9 @@ _ENDPOINTS = {
         ("top_k", None),
     ),
     "user_id": (("user_id", None),),
-    "process_user": (("user", None),),
+    "process_user": (("user", UserQuery.from_dict),),
     "recommend_with_user": (
-        ("user", None),
+        ("user", UserQuery.from_dict),
         ("exclude_item_ids", None),
         ("top_k", None),
     ),

@@ -5,8 +5,9 @@ dotted `--model.x / --data.y / --trainer.z` overrides coerced by each
 field's declared type, and `--print_config`. The config file is JSON
 (the reference's YAML loader reads JSON too, so one file drives both
 CLIs) and `--print_config` prints JSON. `--device` picks the torch
-device (default `cuda`). `predict` waits for a parquet-free user store
-(ROADMAP.md, Queue 1 item 0c) and exits with an error.
+device (default `cuda`). `predict` (the reference writes its
+predictions as parquet) is not ported yet (ROADMAP.md, Queue 1) and
+exits with an error.
 
 Examples:
     python -m xfmr_rec_torch.training.cli fit --print_config
@@ -170,8 +171,8 @@ def run(
         return None, None
     if args.subcommand == "predict":
         msg = (
-            "predict needs a parquet-free user store, not ported yet "
-            "(ROADMAP.md, Queue 1 item 0c)"
+            "predict writes parquet predictions in the reference and needs "
+            "a parquet-free output, not ported yet (ROADMAP.md, Queue 1)"
         )
         raise SystemExit(msg)
 

@@ -1,8 +1,7 @@
 """Training module: configs, train state, train and eval steps.
 
-Port of `xfmr_rec_tpu/training/module.py` for the text tower, in plain
-PyTorch with autograd (the training step has no hand-written kernel in
-either package).
+Port of `xfmr_rec_tpu/training/module.py`, in plain PyTorch with autograd
+(the training step has no hand-written kernel in either package).
 
 - `TrainConfig` extends the encoder config with the training knobs and
   the reference's trained-config defaults (hidden 32, 1 layer, 4 heads,
@@ -10,7 +9,9 @@ either package).
   1.0, lr 1e-4, top_k 20).
 - `train_step` computes the loss family for logging and differentiates
   only `train_loss`; the user, positive and negative towers run as one
-  (3B, L) encoder pass.
+  (3B, L) encoder pass. Two-tower configs (`needs_two_tower`: the
+  history user tower, item-identity channels) train a `TwoTowerModel`
+  through `train_embeds`, one text pass over (3 + H) * B rows.
 - The optimizer is `optax.adamw(lr, weight_decay)`: AdamW with
   b1 0.9, b2 0.999, eps 1e-8 outside the square root, decay on every
   parameter. That is `torch.optim.AdamW` with one group over all
@@ -25,8 +26,8 @@ either package).
 `dropout_rng_impl` is accepted for config compatibility and ignored:
 dropout masks come from the state's `torch.Generator` and never match
 JAX's. `remat=True` is refused: `torch.utils.checkpoint` restores the
-global RNG, not an explicit generator, so a replayed forward would draw
-other masks.
+global RNG, not an explicit generator, so a replayed forward of the text
+or the fusion layers would draw other masks.
 """
 
 from __future__ import annotations
@@ -43,7 +44,9 @@ from xfmr_rec_torch.models.encoder import (
     TextEncoder,
     init_encoder,
     needs_two_tower,
+    uses_item_ids,
 )
+from xfmr_rec_torch.models.history import TwoTowerModel, init_two_tower
 from xfmr_rec_torch.ops.losses import LOSS_NAMES, LossConfig, compute_losses
 from xfmr_rec_torch.params import TOP_K
 
@@ -132,29 +135,23 @@ def learning_rate_at(config: TrainConfig, count: int) -> float:
 
 
 def check_supported(config: TrainConfig) -> None:
-    """Refuse what the port does not train (yet): `remat` and two-tower
-    configs."""
+    """Refuse what the port does not train (yet): `remat`."""
     if config.remat:
         msg = (
             "remat=True is not supported by the port: "
             "torch.utils.checkpoint restores the global RNG, not the "
-            "explicit dropout generator, so its replayed masks would "
-            "differ (ROADMAP.md, Queue 1 item 6)"
-        )
-        raise NotImplementedError(msg)
-    if needs_two_tower(config):
-        msg = (
-            "two-tower configs (history user tower, item-identity "
-            "channels) are not ported yet (ROADMAP.md, Queue 1 item 7)"
+            "explicit dropout generator, so the replayed masks of the text "
+            "and fusion layers would differ (ROADMAP.md, Queue 1 item 6)"
         )
         raise NotImplementedError(msg)
 
 
 class TrainState:
-    """The encoder, its AdamW state, the update count and the dropout
-    generator.
+    """The model (a `TextEncoder`, or a `TwoTowerModel` for two-tower
+    configs), its AdamW state, the update count and the dropout generator.
 
-    Parameters are drawn on the CPU from `seed` (`init_encoder`), so every
+    Parameters are drawn on the CPU from `seed` (`init_encoder` /
+    `init_two_tower`), so every
     device starts from the same values, then live on `device` (the card
     unless the caller passes "cpu"); the dropout generator lives there
     too, seeded from `seed + 1`.
@@ -177,7 +174,10 @@ class TrainState:
                 raise ValueError(msg)
         self.config = config
         self.device = resolve_device(device)
-        self.model: TextEncoder = init_encoder(config, seed).to(self.device)
+        init = init_two_tower if needs_two_tower(config) else init_encoder
+        self.model: TextEncoder | TwoTowerModel = init(config, seed).to(
+            self.device
+        )
         self.optimizer = torch.optim.AdamW(
             self.model.parameters(),
             lr=learning_rate_at(config, 0),
@@ -200,23 +200,47 @@ def batch_to_device(
     }
 
 
+def _two_tower_inputs(
+    batch: dict[str, torch.Tensor], config: TrainConfig
+) -> dict[str, torch.Tensor]:
+    """The batch fields `TwoTowerModel.train_embeds` takes for `config`."""
+    names = []
+    if config.user_tower == "history":
+        names += ["hist_tokens", "hist_mask", "hist_ratings"]
+        if uses_item_ids(config):
+            names.append("hist_rns")
+    if config.max_bag > 0:
+        names += ["bag_rns", "bag_ratings", "bag_mask"]
+    out = {name: batch[name] for name in names}
+    if uses_item_ids(config):
+        out["item_rns"] = batch["item_idx"]
+    return out
+
+
 def compute_batch_losses(
-    model: TextEncoder,
+    model: TextEncoder | TwoTowerModel,
     batch: dict[str, torch.Tensor],
     config: TrainConfig,
     generator: torch.Generator | None = None,
     names: tuple[str, ...] | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Encode user + positive + negative rows in one pass and run the
-    loss family (dropout on when `generator` is given)."""
-    batch_size = batch["user_tokens"].shape[0]
-    tokens = torch.cat(
-        [batch["user_tokens"], batch["item_tokens"], batch["neg_item_tokens"]]
+    """Encode user + positive + negative (+ history) rows in one pass and
+    run the loss family (dropout on when `generator` is given)."""
+    towers = (
+        batch["user_tokens"], batch["item_tokens"], batch["neg_item_tokens"]
     )
-    embeds = model(tokens, generator)
+    if needs_two_tower(config):
+        user_embed, item_embed = model.train_embeds(
+            *towers, generator=generator, **_two_tower_inputs(batch, config)
+        )
+    else:
+        batch_size = towers[0].shape[0]
+        embeds = model(torch.cat(towers), generator)
+        user_embed = embeds[:batch_size]
+        item_embed = embeds[batch_size:]  # positives then sampled negatives
     return compute_losses(
-        embeds[:batch_size],
-        embeds[batch_size:],  # positives then sampled negatives
+        user_embed,
+        item_embed,
         batch["target"],
         item_idx=batch["item_idx"],
         pos_idx=batch["pos_idx"],
@@ -274,6 +298,8 @@ def eval_losses(
 
 
 @torch.no_grad()
-def encode(model: TextEncoder, tokens: torch.Tensor) -> torch.Tensor:
+def encode(
+    model: TextEncoder | TwoTowerModel, tokens: torch.Tensor
+) -> torch.Tensor:
     """Deterministic batched text encoding (corpus / query embedding)."""
     return model(tokens)

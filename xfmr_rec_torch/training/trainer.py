@@ -1,27 +1,31 @@
 """Trainer: the training loop with in-training retrieval eval.
 
-Port of `xfmr_rec_tpu/training/trainer.py` for the text tower on one
-device:
+Port of `xfmr_rec_tpu/training/trainer.py` on one device:
 - defaults: max_epochs 1, validation every 1/4 epoch, monitor
   val/RetrievalNormalizedDCG (max), early stopping with min_delta 0.001
   and patience 3, best / last checkpoints;
 - every validation re-embeds the item corpus with the current encoder
-  into a `RetrievalIndex(method="auto")` on the trainer's device (dense
-  below 65,536 items, the packed scan kernels from there on) and scores
-  per-user top-k retrieval with the user's train history excluded;
+  (the item tower: + ID embedding, + bias column, + the CF factor and
+  popularity columns) into a `RetrievalIndex(method="auto")` on the
+  trainer's device (dense below 65,536 items, the packed scan kernels
+  from there on) and scores per-user top-k retrieval with the user's
+  train history excluded; the history tower's users gather their
+  history embeddings from that f32 corpus matrix;
+- `cf_rank > 0` factorizes the train co-occurrence at setup
+  (`models/cf.py`, seeded) and appends each user's CF query columns;
 - checkpoints are `torch.save` files holding the parameters, the
   optimizer state, the step, the best metric and the dropout
   generator's state, so a restored run resumes with the same masks;
 - `save` writes the serving artifact: `processors.json` (same keys as
-  the reference), `index/`, `vocab.json` for the vocab tokenizer, and
-  `encoder.npz` + `portable.json`. It writes no `encoder.msgpack` (a
-  flax file) and no `users.parquet` (the port reads no parquet).
+  the reference), `encoder.msgpack` (the whole parameter tree in flax's
+  format), `index/`, `vocab.json` for the vocab tokenizer, `cf.npz` with
+  the CF channel, the user store `users.npz` (in place of the
+  reference's `users.parquet`; `serving/users.py`), and `encoder.npz` +
+  `portable.json` with the text encoder alone.
 
-Refused with an error (not ported yet, ROADMAP.md Queue 1): two-tower
-and history configs and `remat` (`training/module.py`
-`check_supported`), the CF channel (`cf_rank > 0`), multi-device
-training (`mesh=True`, `model_parallel > 1`, `shard_vocab`), and
-`profile_dir`.
+Refused with an error (not ported yet, ROADMAP.md Queue 1): `remat`
+(`training/module.py` `check_supported`), multi-device training
+(`mesh=True`, `model_parallel > 1`, `shard_vocab`), and `profile_dir`.
 """
 
 from __future__ import annotations
@@ -39,13 +43,18 @@ import torch
 from xfmr_rec_torch.data.module import DataConfig, RecDataModule
 from xfmr_rec_torch.device import resolve_device
 from xfmr_rec_torch.index.mips import RetrievalIndex
-from xfmr_rec_torch.models.convert import write_portable
+from xfmr_rec_torch.models.cf import factorize_item_cf
+from xfmr_rec_torch.models.convert import write_msgpack, write_portable
+from xfmr_rec_torch.models.encoder import needs_two_tower, uses_item_ids
 from xfmr_rec_torch.params import (
+    CF_NPZ,
     INDEX_DIR,
     METRIC,
     PROCESSORS_JSON,
+    USERS_NPZ,
     VOCAB_JSON,
 )
+from xfmr_rec_torch.serving.users import UserStore
 from xfmr_rec_torch.training import module as train_mod
 from xfmr_rec_torch.training.metrics import retrieval_metrics
 from xfmr_rec_torch.training.module import TrainConfig, TrainState
@@ -87,10 +96,8 @@ class TrainerConfig:
     shard_vocab: bool = False
 
 
-def _refusals(config: TrainConfig, tc: TrainerConfig) -> list[str]:
+def _refusals(tc: TrainerConfig) -> list[str]:
     refused = []
-    if config.cf_rank > 0:
-        refused.append("the CF channel (cf_rank > 0)")
     if tc.mesh or tc.model_parallel > 1 or tc.shard_vocab:
         refused.append(
             "multi-device training (mesh, model_parallel, shard_vocab)"
@@ -112,7 +119,7 @@ class Trainer:
         self.config = config or TrainConfig()
         self.trainer_config = trainer_config or TrainerConfig()
         train_mod.check_supported(self.config)
-        refused = _refusals(self.config, self.trainer_config)
+        refused = _refusals(self.trainer_config)
         if refused:
             msg = f"{', '.join(refused)}: {_NOT_PORTED}"
             raise NotImplementedError(msg)
@@ -129,6 +136,11 @@ class Trainer:
         self.best_metric = -np.inf
         self._bad_checks = 0
         self.index: RetrievalIndex | None = None
+        # the factorized item-CF channel and each user's CF vector
+        self.cf = None
+        self._user_cf: np.ndarray | None = None
+        # the history tower gathers from this (N, d) f32 corpus matrix
+        self._corpus_f32: torch.Tensor | None = None
 
     @property
     def global_step(self) -> int:
@@ -138,8 +150,35 @@ class Trainer:
     def setup(self) -> None:
         if self.state is not None:
             return
+        self._sync_data_fields()
         self.data.prepare_data()
         self.data.setup()
+        if self.config.cf_rank > 0:
+            # recomputed from the train interactions (seeded), so
+            # checkpoints need not hold it
+            self.cf = factorize_item_cf(
+                self.data._train_items_by_user,
+                self.data.num_items,
+                rank=self.config.cf_rank,
+                seed=self.trainer_config.seed,
+            )
+            self._user_cf = np.zeros(
+                (self.data.num_users, self.cf.rank), np.float32
+            )
+            for upos, items in self.data._train_items_by_user.items():
+                if items:
+                    self._user_cf[upos] = self.cf.user_vectors(
+                        np.asarray(items, dtype=np.int64)
+                    )
+        if self.config.item_id_embedding == "dense":
+            max_rn = int(self.data.item_rns.max(initial=0))
+            if max_rn >= self.config.item_id_buckets:
+                msg = (
+                    "dense item_id_embedding needs item_id_buckets > max "
+                    f"movie_rn ({self.config.item_id_buckets} <= {max_rn}); "
+                    "raise item_id_buckets or use bloom/hash"
+                )
+                raise ValueError(msg)
         if (
             self.config.lr_schedule != "constant"
             and self.config.total_steps is None
@@ -164,6 +203,29 @@ class Trainer:
                 "dataset": self.data.provenance or {},
             }
         )
+
+    def _sync_data_fields(self) -> None:
+        """The data module must emit the history and bag fields at the
+        model's widths: set them before its setup, or fail on a mismatch
+        with one already set up."""
+        sync = {}
+        if self.config.user_tower == "history":
+            sync["max_history"] = self.config.max_history
+        if self.config.max_bag > 0:
+            sync["max_bag"] = self.config.max_bag
+        if not sync:
+            return
+        if self.data._ready:
+            for field, value in sync.items():
+                built = getattr(self.data.config, field)
+                if built != value:
+                    msg = (
+                        f"model needs data.{field} == {value} (data module "
+                        f"built with {built})"
+                    )
+                    raise ValueError(msg)
+        else:
+            self.data.config = dataclasses.replace(self.data.config, **sync)
 
     def _num_train_batches(self) -> int:
         total = self.data.steps_per_epoch
@@ -241,19 +303,28 @@ class Trainer:
     # ------------------------------------------------------------------
     # evaluation
     # ------------------------------------------------------------------
-    def _encode_rows(self, tokens: np.ndarray) -> torch.Tensor:
+    def _encode_rows(
+        self, tokens: np.ndarray, rns: np.ndarray | None = None
+    ) -> torch.Tensor:
         """Embeddings of a token matrix, `encode_batch_size` rows a pass,
-        left on the device."""
+        left on the device; with `rns`, through the item tower."""
         batch = self.trainer_config.encode_batch_size
-        outs = [
-            train_mod.encode(
-                self.state.model,
-                torch.from_numpy(tokens[start : start + batch]).to(
-                    self.device
-                ),
+        model = self.state.model
+        outs = []
+        for start in range(0, len(tokens), batch):
+            chunk = torch.from_numpy(tokens[start : start + batch]).to(
+                self.device
             )
-            for start in range(0, len(tokens), batch)
-        ]
+            if rns is None:
+                outs.append(train_mod.encode(model, chunk))
+                continue
+            with torch.no_grad():
+                outs.append(model.encode_items(
+                    chunk,
+                    torch.from_numpy(rns[start : start + batch]).to(
+                        self.device
+                    ),
+                ))
         if not outs:
             return torch.zeros(
                 (0, self.config.hidden_size), device=self.device
@@ -262,7 +333,24 @@ class Trainer:
 
     def build_index(self) -> RetrievalIndex:
         """Embed the full item corpus -> exact MIPS index (eval barrier)."""
-        corpus = self._encode_rows(self.data.item_tokens)
+        corpus = self._encode_rows(
+            self.data.item_tokens,
+            rns=self.data.item_rns if uses_item_ids(self.config) else None,
+        )
+        if self.cf is not None:
+            if self.config.index_dtype == "int8":
+                logger.warning(
+                    "cf_rank > 0 with an int8 index: the per-item scale "
+                    "spans embeddings and CF factors of other magnitudes"
+                )
+            corpus = torch.cat([
+                corpus,
+                torch.from_numpy(self.cf.item_factors).to(self.device),
+                torch.from_numpy(self.cf.pop_prior[:, None]).to(self.device),
+            ], dim=1)
+        if self.config.user_tower == "history":
+            # the fusion reads the d-dim part only (no bias / CF columns)
+            self._corpus_f32 = corpus[:, : self.config.hidden_size].float()
         metadata = [
             {"movie_text": text, "movie_rn": int(rn)}
             for text, rn in zip(
@@ -289,7 +377,7 @@ class Trainer:
         for batch_idx, batch in enumerate(self.data.eval_batches(subset)):
             if limit is not None and batch_idx >= limit:
                 break
-            users = self._encode_rows(batch["user_tokens"])
+            users = self._eval_user_embeds(batch)
             _, pred_ids = index.search(
                 users,
                 top_k=top_k,
@@ -309,6 +397,60 @@ class Trainer:
                 totals[key] = totals.get(key, 0.0) + float(value) * weight
             count += weight
         return {key: value / max(count, 1) for key, value in totals.items()}
+
+    def _eval_user_embeds(self, batch: dict[str, np.ndarray]) -> torch.Tensor:
+        """User vectors of one eval batch, at index width: the text tower
+        (+ the constant 1 paired with the bias column), or the history
+        fusion over embeddings gathered from the corpus matrix; then the
+        CF query columns."""
+        if self.config.user_tower != "history":
+            out = self._encode_rows(batch["user_tokens"])
+            if self.config.item_bias:
+                out = torch.cat([out, torch.ones_like(out[:, :1])], dim=1)
+            return self._augment_query(out, batch.get("user_pos"))
+        names = ["hist_positions", "hist_mask", "hist_ratings"]
+        if self.config.max_bag > 0:
+            names += ["bag_rns", "bag_ratings", "bag_mask"]
+        extras = [
+            torch.from_numpy(np.ascontiguousarray(batch[name])).to(self.device)
+            for name in names
+        ]
+        out = self.state.model.encode_users_from_corpus(
+            torch.from_numpy(batch["user_tokens"]).to(self.device),
+            self._corpus_f32,
+            *extras,
+        )
+        return self._augment_query(out, batch.get("user_pos"))
+
+    def _augment_query(
+        self, out: torch.Tensor, user_pos: np.ndarray | None
+    ) -> torch.Tensor:
+        """Append the CF query columns: cf_weight * the user's unit CF
+        vector, then the constant cf_pop_weight paired with the
+        popularity column. Queries with no dataset user get zero CF."""
+        if self.cf is None:
+            return out
+        if user_pos is None:
+            cf_vecs = np.zeros((len(out), self.cf.rank), np.float32)
+        else:
+            cf_vecs = self._user_cf[np.asarray(user_pos, dtype=np.int64)]
+        cf = torch.from_numpy(cf_vecs).to(out.device, out.dtype)
+        pop = torch.full_like(out[:, :1], self.config.cf_pop_weight)
+        return torch.cat([out, self.config.cf_weight * cf, pop], dim=1)
+
+    def eval_user_embeddings(self, user_pos: np.ndarray) -> torch.Tensor:
+        """Query vectors of dataset users by position, on the eval path
+        (text tower, or the history fusion over the corpus)."""
+        self.setup()
+        if self.index is None:
+            self.build_index()
+        user_pos = np.asarray(user_pos)
+        batch = {
+            "user_tokens": self.data.user_tokens[user_pos],
+            "user_pos": user_pos,
+            **self.data.user_history_fields(user_pos),
+        }
+        return self._eval_user_embeds(batch)
 
     def _eval_losses(self, subset: str) -> dict[str, float]:
         """The loss family averaged over held-out interaction batches."""
@@ -416,6 +558,17 @@ class Trainer:
         self.index.save(path / INDEX_DIR)
         if hasattr(self.data.tokenizer, "vocab"):
             self.data.tokenizer.save(path / VOCAB_JSON)
-        write_portable(
-            self.state.model.state_dict(), model_dump, data_dump, path
+        if self.cf is not None:
+            self.cf.save(path / CF_NPZ)
+        UserStore.from_prepared(self.data.config.data_dir).save(
+            path / USERS_NPZ
         )
+        state = self.state.model.state_dict()
+        write_msgpack(state, path)
+        if needs_two_tower(self.config):
+            state = {
+                name.removeprefix("text."): value
+                for name, value in state.items()
+                if name.startswith("text.")
+            }
+        write_portable(state, model_dump, data_dump, path)
