@@ -18,8 +18,14 @@ printing no result, when there is no card or any phase fails. Phases:
 3. the threshold-select kernel against its plain version on real pools:
    raw keys and meta identical, at the full batch and at 128 rows;
 4. the serving path: a synthesized artifact (text tower at the trained
-   widths, 2^20 items), `RecService` over HTTP on localhost, every answer
-   held against dense exact top-k on the card;
+   widths, 2^20 items, every text tokenized by the native tokenizer and
+   encoded on the card), `RecService` over HTTP on localhost, every
+   answer held against dense exact top-k on the card; BM25 keyword
+   search over HTTP against its `native=False` oracle; 1,024 items added
+   over HTTP under traffic (no request may fail; the grown index held
+   against dense exact top-k); 1,024 items removed from a copy of the
+   grown index, then `search_certified("fused")` on it held against
+   dense exact top-k, the surviving rows' packed keys unmoved;
 5. guaranteed-exact search (`search_certified(method="fused")`) at
    2^20 x 64 bf16, B=4096, k=100, against dense exact top-k, with its
    throughput and a profile of one batch, and of one `"f32"` batch
@@ -57,22 +63,28 @@ printing no result, when there is no card or any phase fails. Phases:
    channel (Bloom ids, bias, CF bag, cf_rank 128) on phase 9's 2^17-item
    catalog, whose validation runs kernel 1 on 162-column rows: answers
    against dense scores, kernel 1 at that width against its plain
-   version, and the artifact served;
+   version, and the artifact served; BM25 over the user store against
+   its oracle; (c) the serve CLI (`python -m
+   xfmr_rec_torch.serving.prepare`) on (a)'s artifact, golden checks
+   passed;
 then the card, one JSON line for the kernels, and the result line.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import dataclasses
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -81,7 +93,7 @@ import torch
 from xfmr_rec_torch.data.module import RecDataModule
 from xfmr_rec_torch.data.prepare import load_table, prepare_movielens
 from xfmr_rec_torch.data.synthetic import generate_movielens
-from xfmr_rec_torch.index.mips import RetrievalIndex
+from xfmr_rec_torch.index.mips import BM25Index, RetrievalIndex
 from xfmr_rec_torch.models.convert import torch_name
 from xfmr_rec_torch.models.encoder import ModelConfig, TextEncoder, init_encoder
 from xfmr_rec_torch.models.tokenizer import HashingTokenizer, TokenizerConfig
@@ -108,7 +120,14 @@ ENCODER = dict(
     max_length=64,
 )
 SERVE_ITEMS = 1 << 20
-ENCODED_ITEMS = 16384
+ENCODED_ITEMS = SERVE_ITEMS
+# texts a chunk through the encoder, and the Python tokenizer's sample
+ENCODE_CHUNK = 32768
+PY_TOKENIZE_SAMPLE = 16384
+# live catalog mutation: items added under traffic, then removed from a
+# copy of the grown index
+ADDED_ITEMS = 1024
+REMOVED_ITEMS = 1024
 BENCH_ITEMS = 1 << 20
 BENCH_DIM = 64
 BENCH_BATCH = 4096
@@ -391,7 +410,8 @@ def item_text(rng, i: int) -> str:
     return f"{' '.join(words)} ({1950 + i % 70})"
 
 
-def synthesize_artifact(root: pathlib.Path, dev) -> tuple[list[str], float]:
+def synthesize_artifact(root: pathlib.Path, dev,
+                        card: str) -> tuple[list[str], float]:
     """processors.json, portable.json, encoder.npz and index/ in the
     layout `Trainer.save` writes, with seeded weights."""
     config = ModelConfig(**ENCODER)
@@ -422,29 +442,34 @@ def synthesize_artifact(root: pathlib.Path, dev) -> tuple[list[str], float]:
                        "max_length": ENCODER["max_length"]}}
     ))
     texts = [item_text(rng, i) for i in range(SERVE_ITEMS)]
-    # encode the first ENCODED_ITEMS texts through the port's encoder;
-    # the pure-Python tokenizer cannot do 2^20 texts inside the time
-    # limit, so the rest are seeded unit vectors
     from xfmr_rec_torch.models.convert import build_encoder, load_portable
 
     _, _, state = load_portable(root)
     encoder = build_encoder(config, state, dev)
     tok = HashingTokenizer(TokenizerConfig(vocab_size=30522,
                                            max_length=ENCODER["max_length"]))
+    # every catalogue text through the native tokenizer and the encoder
     t0 = time.perf_counter()
-    encoded = []
-    for start in range(0, ENCODED_ITEMS, 2048):
-        chunk = texts[start:min(start + 2048, ENCODED_ITEMS)]
-        ids = torch.from_numpy(tok.encode_batch(chunk))
-        encoded.append(encoder(ids.to(dev)))
-    encoded = torch.cat(encoded)
+    tokens = tok.encode_batch(texts[:ENCODED_ITEMS])
+    tokenize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py_tokens = tok.encode_batch(texts[:PY_TOKENIZE_SAMPLE], native=False)
+    py_tokenize_s = time.perf_counter() - t0
+    check(np.array_equal(tokens[:PY_TOKENIZE_SAMPLE], py_tokens),
+          "native token ids differ from the Python tokenizer's")
+    t0 = time.perf_counter()
+    tokens_dev = torch.from_numpy(tokens).to(dev)
+    encoded = torch.cat([
+        encoder(tokens_dev[start:start + ENCODE_CHUNK])
+        for start in range(0, ENCODED_ITEMS, ENCODE_CHUNK)
+    ])
+    torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
-    g = torch.Generator(device=dev).manual_seed(SEED + 2)
-    rest = torch.nn.functional.normalize(
-        torch.randn(SERVE_ITEMS - ENCODED_ITEMS, ENCODER["hidden_size"],
-                    device=dev, generator=g), dim=1,
-    )
-    corpus = torch.cat([encoded, rest])
+    del tokens_dev
+    check(encoded.shape == (SERVE_ITEMS, ENCODER["hidden_size"])
+          and bool(torch.isfinite(encoded).all()),
+          "the encoded catalogue is not finite at its shape")
+    corpus = encoded
     ids = np.arange(1, SERVE_ITEMS + 1)
     metadata = [{"movie_text": t, "movie_rn": int(i)}
                 for t, i in zip(texts, ids, strict=True)]
@@ -452,11 +477,12 @@ def synthesize_artifact(root: pathlib.Path, dev) -> tuple[list[str], float]:
                            method="auto", device=dev)
     check(index.method == "scan", "method='auto' did not pick the scan")
     index.save(root / "index")
-    print(f"artifact: {ENCODED_ITEMS} item texts encoded on the card in "
-          f"{encode_s:.2f} s; {SERVE_ITEMS - ENCODED_ITEMS} further items "
-          "are seeded unit vectors (the pure-Python tokenizer cannot "
-          "tokenize 2^20 texts inside the time limit); index method "
-          f"'auto' -> {index.method!r}")
+    print(f"artifact: all {ENCODED_ITEMS} item texts tokenized by the "
+          f"native tokenizer in {tokenize_s:.3f} s (the Python tokenizer: "
+          f"{py_tokenize_s:.3f} s for {PY_TOKENIZE_SAMPLE}, ids equal) and "
+          f"encoded on the card in {encode_s:.3f} s (host wall, "
+          f"{ENCODE_CHUNK} texts a pass); index method 'auto' -> "
+          f"{index.method!r} [{card}]")
     return texts, encode_s
 
 
@@ -485,11 +511,16 @@ def check_exclusion_search(dense, ct, exclude, got_pos, k, tol, what):
     """
     batch, n = dense.shape
     half = ct // 2
-    per_pair = dense.view(batch, n // ct, 2, half).permute(0, 3, 1, 2)
+    # a partial last tile: its padded lanes hold no item (the scan masks
+    # them), so they score -inf and survive nothing
+    dense = torch.nn.functional.pad(dense, (0, -n % ct), value=-math.inf)
+    per_pair = dense.view(batch, -1, 2, half).permute(0, 3, 1, 2)
     top3 = torch.topk(per_pair.reshape(batch, half, -1), 3, dim=-1).values
-    pair_of = torch.arange(n, device=dense.device) % half
+    pair_of = torch.arange(dense.shape[1], device=dense.device) % half
     maybe = dense >= top3[:, pair_of, 1] - tol
     sure = dense > top3[:, pair_of, 2] + tol
+    maybe[:, n:] = False
+    sure[:, n:] = False
     for row, excl in enumerate(exclude):
         if excl:
             idx = torch.tensor(excl, device=dense.device)
@@ -509,17 +540,58 @@ def check_exclusion_search(dense, ct, exclude, got_pos, k, tol, what):
               f"{what}: missed a top item")
 
 
+def check_direct_search(engine, rng, dev, what: str) -> tuple[float, float]:
+    """8 seeded text queries with 5 excluded ids each through
+    `engine.index.search`, held against dense top-k of the lane-pair
+    survivors on the card at key-quantum resolution. Item ids are corpus
+    positions + 1. Returns the search's host ms and recall@k against
+    unrestricted dense top-k."""
+    num_items = len(engine.index)
+    tight = quantum_scaled(index_quantum_bits(engine.index)) + 1e-6
+    queries = [" ".join(rng.choice(WORDS, size=4)) for _ in range(8)]
+    excl = [[int(x) for x in rng.integers(1, num_items + 1, size=5)]
+            for _ in queries]
+    emb = torch.from_numpy(engine.embed(queries))
+    t0 = time.perf_counter()
+    _, got_ids = engine.index.search(emb.numpy(), top_k=BENCH_K,
+                                     exclude_ids=excl)
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    ct = engine.index._scan_setup()[2]
+    q_s = scaled_queries(engine.index, emb)
+    dense = q_s.float() @ engine.index.corpus.float().T
+    excl_pos = [[i - 1 for i in e] for e in excl]
+    got_pos = torch.from_numpy(got_ids.astype(np.int64) - 1).to(dev)
+    check_exclusion_search(dense, ct, excl_pos, got_pos, BENCH_K, tight, what)
+    exact_top = 0
+    for row in range(len(queries)):
+        masked = dense[row].clone()
+        masked[torch.tensor(excl_pos[row], device=dev)] = -math.inf
+        true_top = set(torch.topk(masked, BENCH_K).indices.tolist())
+        exact_top += len(true_top & set(got_pos[row].tolist()))
+        check(not set(excl[row]) & set(got_ids[row].tolist()),
+              f"{what}: an excluded id came back")
+    return direct_ms, exact_top / (BENCH_K * len(queries))
+
+
 def phase_serving(dev, card: str) -> dict:
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     root = pathlib.Path(tmp.name)
-    texts, _ = synthesize_artifact(root, dev)
+    texts, _ = synthesize_artifact(root, dev, card)
     t0 = time.perf_counter()
     engine = RecommenderEngine(root, device=dev, warmup=True)
     print(f"engine load + warmup {time.perf_counter() - t0:.2f} s")
-    service = RecService(engine, micro_batch=64, micro_batch_wait_ms=20)
+    service = RecService(engine, micro_batch=64, micro_batch_wait_ms=20,
+                         allow_catalog_mutation=True)
     server = make_server(service, port=0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     base = f"http://127.0.0.1:{server.server_address[1]}"
+    launches = {name: 0 for name in kernels.LAUNCHES}
+
+    def add_launches():
+        counts = kernels.launch_counts()
+        for name, count_ in counts.items():
+            launches[name] += count_
+        return counts
 
     def post(endpoint, payload):
         req = urllib.request.Request(
@@ -535,41 +607,18 @@ def phase_serving(dev, card: str) -> dict:
     thread.start()
     try:
         # (a) direct engine search, checked at key-quantum resolution
-        queries = [" ".join(rng.choice(WORDS, size=4)) for _ in range(8)]
-        excl = [[int(x) for x in rng.integers(1, SERVE_ITEMS, size=5)]
-                for _ in queries]
-        emb = torch.from_numpy(engine.embed(queries))
-        t0 = time.perf_counter()
-        _, got_ids = engine.index.search(emb.numpy(), top_k=BENCH_K,
-                                         exclude_ids=excl)
-        direct_ms = (time.perf_counter() - t0) * 1e3
-        ct = engine.index._scan_setup()[2]
-        q_s = scaled_queries(engine.index, emb)
-        dense = q_s.float() @ engine.index.corpus.float().T
-        excl_pos = [[i - 1 for i in e] for e in excl]
-        got_pos = torch.from_numpy(got_ids.astype(np.int64) - 1).to(dev)
-        check_exclusion_search(dense, ct, excl_pos, got_pos, BENCH_K, tight,
-                               "direct search")
-        exact_top = 0
-        for row in range(len(queries)):
-            pos = got_pos[row]
-            masked = dense[row].clone()
-            masked[torch.tensor([i - 1 for i in excl[row]], device=dev)] = (
-                -math.inf
-            )
-            true_top = set(torch.topk(masked, BENCH_K).indices.tolist())
-            exact_top += len(true_top & set(pos.tolist()))
-            check(not set(excl[row]) & set(got_ids[row].tolist()),
-                  "an excluded id came back")
-        recall = exact_top / (BENCH_K * len(queries))
+        direct_ms, recall = check_direct_search(engine, rng, dev,
+                                                "direct search")
         print(f"serving direct: 8 queries x top-{BENCH_K} with exclusions == "
               "dense top-k of the lane-pair survivors up to one key quantum "
               f"({tight:.2e} scaled); recall@{BENCH_K} vs unrestricted dense "
               f"{recall:.4f}; {direct_ms:.2f} ms host wall [{card}]")
+        ct = engine.index._scan_setup()[2]
 
         # (b) HTTP requests through RecService
         answers = []
-        for text in queries[:3]:
+        queries = [" ".join(rng.choice(WORDS, size=4)) for _ in range(3)]
+        for text in queries:
             answers.append((text, [], post("recommend_with_query",
                                            {"query": {"text": text},
                                             "top_k": 20})))
@@ -612,12 +661,33 @@ def phase_serving(dev, card: str) -> dict:
                   "served scores disagree with dense")
         health = urllib.request.urlopen(f"{base}/healthz", timeout=30).read()
         check(json.loads(health) == {"status": "ok"}, "healthz")
-        launches = kernels.launch_counts()
+        add_launches()
         print(f"serving http: {len(answers)} answers (3 recommend_with_query, "
               "3 recommend_with_item_id with exclusions, 3 item_id lookups, "
               f"a 64-request burst in {burst_s:.2f} s host wall served in "
               f"{batcher.batches_dispatched} micro-batches) all == dense "
               f"top-k of the lane-pair survivors within {loose} [{card}]")
+
+        # (b) BM25 keyword search over HTTP on the whole catalogue
+        check_text_search(
+            base, "search_items_text", engine.index.search_text,
+            engine.index.metadata, "movie_text", engine.index.ids, "movie_id",
+            [" ".join(rng.choice(WORDS, size=int(rng.integers(1, 4))))
+             for _ in range(16)], card)
+
+        # (c) 1,024 items added under traffic, (d) removal + certified
+        kernels.reset_launch_counts()
+        check_live_add(engine, base, rng, dev, card)
+        counts = add_launches()
+        print(f"live add kernel launches: {counts}")
+        check(counts["packed_scan"] > 0, "the grown index never launched "
+              "packed_scan")
+        kernels.reset_launch_counts()
+        check_removal(engine, rng, dev, card)
+        counts = add_launches()
+        print(f"removal + certified kernel launches: {counts}")
+        check(counts["packed_scan"] > 0 and counts["threshold_select"] > 0,
+              "certified search on the compacted index skipped a kernel")
     finally:
         server.shutdown()
         server.server_close()
@@ -627,6 +697,218 @@ def phase_serving(dev, card: str) -> dict:
     print(f"serving path kernel launches: {launches}")
     check(launches["packed_scan"] > 0, "serving path never launched packed_scan")
     return {"launches": launches}
+
+
+def post_status(base: str, endpoint: str, payload: dict):
+    """(HTTP status, JSON body) of one POST, error statuses included."""
+    req = urllib.request.Request(
+        f"{base}/{endpoint}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST",
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def check_text_search(base, endpoint, search, rows, text_col, ids, id_key,
+                      queries, card):
+    """BM25 over HTTP: the index's build seconds (its first search,
+    direct), the p50 and max of 64 sequential requests, and 16 seeded
+    queries equal to the `native=False` oracle over the same rows (rows
+    equal, scores within 1e-5 relative); `ids[row]` is a row's id."""
+    t0 = time.perf_counter()
+    search("", top_k=1)
+    build_s = time.perf_counter() - t0
+    lat = []
+    for i in range(64):
+        t0 = time.perf_counter()
+        status, _ = post_status(base, endpoint,
+                                {"query": queries[i % len(queries)],
+                                 "top_k": 10})
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(status == 200, f"{endpoint} answered {status}")
+    lat.sort()
+    t0 = time.perf_counter()
+    oracle = BM25Index(rows, text_col=text_col, native=False)
+    oracle_s = time.perf_counter() - t0
+    identical = 0
+    for query in queries:
+        status, body = post_status(base, endpoint,
+                                   {"query": query, "top_k": 10})
+        want = oracle.search(query, top_k=10)
+        check(status == 200 and len(body) == len(want) > 0,
+              f"{endpoint} {query!r}: {len(body)} hits, oracle {len(want)}")
+        for hit, (row, score) in zip(body, want, strict=True):
+            check(hit[id_key] == int(ids[row])
+                  and hit[text_col] == rows[row][text_col]
+                  and abs(hit["score"] - score) <= 1e-5 * score,
+                  f"{endpoint} {query!r} differs from the oracle")
+        identical += [h["score"] for h in body] == [sc for _, sc in want]
+    print(f"{endpoint}: BM25 over {len(rows)} rows built in {build_s:.3f} s "
+          f"(native); 64 sequential requests over HTTP p50 "
+          f"{lat[len(lat) // 2]:.3f} ms, max {lat[-1]:.3f} ms (host clock); "
+          f"16 seeded queries == the native=False oracle over all "
+          f"{len(rows)} rows (built in {oracle_s:.3f} s): rows equal, scores "
+          f"within 1e-5 relative, {identical} of 16 bit-identical [{card}]")
+
+
+def check_live_add(engine, base, rng, dev, card) -> None:
+    """(c) `add_items` refused (403) by a service started without
+    `allow_catalog_mutation`; then 1,024 items added over HTTP while 4
+    client threads send `recommend_with_query`: no request fails, the
+    grown index answers 8 searches with exclusions as dense top-k does
+    at key-quantum resolution, and each added item's text retrieves it
+    in its top 10."""
+    gated = make_server(RecService(engine), port=0)
+    gated_thread = threading.Thread(target=gated.serve_forever, daemon=True)
+    gated_thread.start()
+    try:
+        status, _ = post_status(
+            f"http://127.0.0.1:{gated.server_address[1]}", "add_items",
+            {"items": [{"movie_id": 10**9, "movie_text": "x"}]})
+    finally:
+        gated.shutdown()
+        gated.server_close()
+        gated_thread.join(timeout=30)
+    check(status == 403, f"add_items without the flag answered {status}")
+    before = len(engine.index)
+    new_ids = list(range(before + 1, before + 1 + ADDED_ITEMS))
+    # a unique word a text, so each added item has its own embedding
+    new_texts = [f"{item_text(rng, i)} release{i}" for i in new_ids]
+    items = [{"movie_rn": i, "movie_id": i, "movie_text": t}
+             for i, t in zip(new_ids, new_texts, strict=True)]
+    log = []  # (start, seconds, ok) of each client request
+    stop = threading.Event()
+
+    def client(seed):
+        crng = np.random.default_rng(seed)
+        while not stop.is_set():
+            text = " ".join(crng.choice(WORDS, size=4))
+            t0 = time.perf_counter()
+            try:
+                status, body = post_status(base, "recommend_with_query",
+                                           {"query": {"text": text},
+                                            "top_k": 10})
+                ok = status == 200 and len(body) == 10
+            except (OSError, ValueError):
+                ok = False
+            log.append((t0, time.perf_counter() - t0, ok))
+
+    clients = [threading.Thread(target=client, args=(SEED + 40 + i,))
+               for i in range(4)]
+    for t in clients:
+        t.start()
+    try:
+        time.sleep(1.0)
+        t_add = time.perf_counter()
+        status, body = post_status(base, "add_items", {"items": items})
+        t_done = time.perf_counter()
+        time.sleep(2.0)
+    finally:
+        stop.set()
+        for t in clients:
+            t.join(timeout=60)
+    check(not any(t.is_alive() for t in clients), "a client hung")
+    check(status == 200 and body == {"added": ADDED_ITEMS,
+                                     "num_items": before + ADDED_ITEMS},
+          f"add_items answered {status}: {body}")
+    failed = sum(not ok for _, _, ok in log)
+    during = [r for r in log if r[0] < t_done and r[0] + r[1] > t_add]
+    after = sorted(r for r in log if r[0] >= t_done)
+    check(failed == 0, f"{failed} of {len(log)} requests failed")
+    check(len(during) > 0 and len(after) > 8, "no traffic around the add")
+    steady = sorted(r[1] for r in after[len(after) // 2:])
+    index = engine.index
+    check(len(index) == before + ADDED_ITEMS
+          and index._scan_state is not None
+          and index._scan_state[3] == before + ADDED_ITEMS,
+          "the published index is not the warmed, grown one")
+    direct_ms, recall = check_direct_search(engine, rng, dev,
+                                            "search after the add")
+    _, got = index.search(engine.embed(new_texts), top_k=10)
+    missed = [i for i, row in zip(new_ids, got, strict=True) if i not in row]
+    check(not missed, f"{len(missed)} added items miss their own top 10")
+    tight = quantum_scaled(index_quantum_bits(index)) + 1e-6
+    print(f"live add: add_items answers 403 without "
+          f"allow_catalog_mutation; {ADDED_ITEMS} items added over HTTP in "
+          f"{(t_done - t_add) * 1e3:.1f} ms host wall while 4 clients sent "
+          f"{len(log)} recommend_with_query requests ({len(during)} "
+          f"overlapping the add, max {max(r[1] for r in during) * 1e3:.1f} "
+          f"ms), 0 failed; first request after the swap "
+          f"{after[0][1] * 1e3:.3f} ms, steady p50 "
+          f"{steady[len(steady) // 2] * 1e3:.3f} ms (host clock, HTTP and "
+          f"micro-batching included); the grown index ({len(index)} items, "
+          f"a partial last tile) answers 8 searches with exclusions == dense "
+          f"top-k of the lane-pair survivors within one key quantum "
+          f"({tight:.2e} scaled; recall@{BENCH_K} vs unrestricted dense "
+          f"{recall:.4f}, {direct_ms:.2f} ms); every added item's text finds "
+          f"it in its top 10 [{card}]")
+
+
+def survivor_keys(index, queries, ids, idx_bits) -> torch.Tensor:
+    """Packed keys (the scan's plain key function, tile stamp 0, one
+    reserved bit) of the rows `ids` for these queries at the index's own
+    score bound, from the stored rows, in f64 on the host."""
+    bound = index._score_bound(queries).cpu()
+    q_s = torch.from_numpy(queries).bfloat16().float() * (0.25 / bound)
+    q_s = q_s.bfloat16().double()
+    rows = torch.tensor([index._id_to_pos[int(i)] for i in ids],
+                        device=index.device)
+    scores = (q_s @ index.corpus[rows].cpu().double().T).float()
+    return topk._packed_keys(scores, 0, idx_bits, 1)
+
+
+def check_removal(engine, rng, dev, card) -> None:
+    """(d) 1,024 seeded ids removed from a copy of the grown index, then
+    `search_certified("fused")` at B=4096, k=100 on it: every row
+    certified or answered by the dense fallback, the answers dense exact
+    top-k of the compacted corpus at key-quantum resolution, and 64
+    surviving rows' packed keys bit-equal before and after (the max norm,
+    so the key quantum, is kept)."""
+    shrunk = copy.copy(engine.index)
+    all_ids = shrunk.ids.astype(np.int64)
+    drop = rng.choice(all_ids, size=REMOVED_ITEMS, replace=False)
+    kept = np.setdiff1d(all_ids, drop)
+    survivors = rng.choice(kept, size=64, replace=False)
+    queries = engine.embed(
+        [" ".join(rng.choice(WORDS, size=4)) for _ in range(BENCH_BATCH)])
+    idx_bits = max((shrunk._scan_setup()[0].shape[0]
+                    // shrunk._scan_setup()[2] - 1).bit_length(), 1)
+    keys_before = survivor_keys(shrunk, queries[:64], survivors, idx_bits)
+    maxnorm = shrunk._corpus_maxnorm
+    t0 = time.perf_counter()
+    shrunk.remove_items(drop)
+    remove_ms = (time.perf_counter() - t0) * 1e3
+    check(len(shrunk) == len(all_ids) - REMOVED_ITEMS
+          and len(engine.index) == len(all_ids),
+          "removal changed the wrong index")
+    check(shrunk._corpus_maxnorm == maxnorm, "removal moved the max norm")
+    keys_after = survivor_keys(shrunk, queries[:64], survivors, idx_bits)
+    check(torch.equal(keys_before, keys_after),
+          "a surviving row's packed key moved")
+    t0 = time.perf_counter()
+    _, ids = shrunk.search_certified(queries, top_k=BENCH_K, method="fused")
+    certified_ms = (time.perf_counter() - t0) * 1e3
+    stats = shrunk.last_certified_stats
+    check(stats["batch"] == BENCH_BATCH, "certified batch size")
+    check(not np.isin(ids, drop).any(), "a removed id came back")
+    positions = np.vectorize(shrunk._id_to_pos.__getitem__)(ids)
+    check(all(len(set(row)) == BENCH_K for row in positions.tolist()),
+          "duplicate answers")
+    tight = quantum_scaled(index_quantum_bits(shrunk)) + 1e-6
+    off = packed_rows_off_quantum(shrunk, queries, positions, tight,
+                                  "certified search after removal")
+    print(f"removal: {REMOVED_ITEMS} seeded ids removed from a copy of the "
+          f"grown index in {remove_ms:.1f} ms host wall ({len(shrunk)} "
+          f"left), the max norm kept and 64 survivors' packed keys "
+          f"bit-equal for 64 queries; search_certified('fused') at "
+          f"B={BENCH_BATCH}, k={BENCH_K}: {stats['pipeline_bad']} rows "
+          f"answered by the dense fallback, the rest certified, every row == "
+          f"dense exact top-k of the compacted corpus within one key quantum "
+          f"({off} held in plain bf16 order instead); {certified_ms:.1f} ms "
+          f"host wall, first call on the compacted corpus [{card}]")
 
 
 def packed_rows_off_quantum(index, queries, positions, tight, what,
@@ -2084,6 +2366,18 @@ def phase_history(dev, card: str, root: pathlib.Path) -> dict:
                    + [dict(dataclasses.asdict(recent[0]), movie_id=-7)]}
         got_hist = post_json(base, "recommend_with_user",
                              {"user": request, "top_k": 20})
+        # BM25 over the user store's profile text
+        user_texts = [str(t) for t in engine.users.arrays["user_text"]]
+        text_rng = np.random.default_rng(SEED + 50)
+        user_queries = []
+        for row in text_rng.choice(len(user_texts), size=16, replace=False):
+            words = re.findall(r"[a-z0-9]+", user_texts[row].lower())
+            user_queries.append(" ".join(
+                text_rng.choice(words, size=2, replace=False)))
+        check_text_search(
+            base, "search_users_text", engine.search_users_text,
+            [{"user_text": t} for t in user_texts], "user_text",
+            engine.users.arrays["user_id"], "user_id", user_queries, card)
     finally:
         server.shutdown()
         server.server_close()
@@ -2235,6 +2529,24 @@ def phase_history(dev, card: str, root: pathlib.Path) -> dict:
           f"answers recommend_with_user_id for 8 users; each query vector "
           f"== the trainer's own (within {worst_wide:.1e}) and each answer == "
           f"the loaded index's search of it [{card}]")
+
+    # (c) the serve CLI on the flagship's artifact, in its own process
+    t0 = time.perf_counter()
+    cli_run = subprocess.run(
+        [sys.executable, "-m", "xfmr_rec_torch.serving.prepare",
+         "--artifact_dir", str(artifact)],
+        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=600, check=False,
+    )
+    cli_s = time.perf_counter() - t0
+    check(cli_run.returncode == 0
+          and "golden-value checks passed" in cli_run.stderr,
+          f"the serve CLI failed ({cli_run.returncode}):\n"
+          f"{cli_run.stdout[-4000:]}\n{cli_run.stderr[-4000:]}")
+    print(f"serve CLI: python -m xfmr_rec_torch.serving.prepare "
+          f"--artifact_dir <the flagship artifact> exited 0 with its golden "
+          f"checks passed in {cli_s:.2f} s wall (process start, engine load "
+          f"and checks) [{card}]")
     return {"launches": launches}
 
 

@@ -24,6 +24,10 @@
   `corpus.npz` (f32 from the stored bf16); the fusion casts both to
   bf16 first, so they agree bit for bit; answers equal the trainer's
   search.
+- The JAX artifact after the same `add_items` on both engines: the index
+  keeps its width (text, bias, CF factors and popularity, zero for the
+  new items), and a user whose request history names an added item gets
+  the same answer from both.
 """
 
 import json
@@ -38,7 +42,7 @@ from xfmr_rec_torch.data.module import DataConfig as PortDataConfig
 from xfmr_rec_torch.data.module import RecDataModule as PortDataModule
 from xfmr_rec_torch.models import convert
 from xfmr_rec_torch.serving.engine import RecommenderEngine as PortEngine
-from xfmr_rec_torch.serving.schemas import UserQuery
+from xfmr_rec_torch.serving.schemas import ItemQuery, UserQuery
 from xfmr_rec_torch.serving.service import RecService, dispatch
 from xfmr_rec_torch.serving.users import UserStore
 from xfmr_rec_torch.training import module as port_module
@@ -49,6 +53,7 @@ from xfmr_rec_tpu.data.prepare import prepare_movielens
 from xfmr_rec_tpu.data.synthetic import generate_movielens
 from xfmr_rec_tpu.serving.engine import RecommenderEngine as RefEngine
 from xfmr_rec_tpu.serving.portable import _flatten
+from xfmr_rec_tpu.serving.schemas import ItemQuery as RefItemQuery
 from xfmr_rec_tpu.serving.service import RecService as RefService
 from xfmr_rec_tpu.training import module as ref_module
 from xfmr_rec_tpu.training.trainer import Trainer, TrainerConfig
@@ -282,3 +287,40 @@ def test_port_artifact_serves_the_trainers_answers(data_dir, tmp_path):
         got = service.recommend_with_user_id(user_id, top_k=10)
         assert [c.movie_id for c in got] == want[0].tolist()
     assert isinstance(engine.get_user(user_id), UserQuery)
+
+
+def test_added_items_serve_users_in_both_engines(jax_artifact):
+    ref = RefService(RefEngine(jax_artifact, warmup=False))
+    port = RecService(PortEngine(jax_artifact, device=CPU, warmup=False),
+                      allow_catalog_mutation=True)
+    width = port.engine.index.dim
+    items = [dict(movie_rn=9001 + i, movie_id=999001 + i,
+                  movie_text=f'{{"title": "New {i} (2030)", '
+                             f'"genres": ["Drama"]}}') for i in range(3)]
+    assert ref.engine.add_items([RefItemQuery(**i) for i in items]) == 3
+    out = dispatch(port, "add_items", {"items": items})
+    assert out == {"added": 3, "num_items": len(ref.engine.index)}
+    engine = port.engine
+    assert engine.index.dim == width == 32 + 1 + 9
+    # new items: zero CF factors and zero popularity
+    assert not engine.index.corpus[-3:, 33:].float().any()
+    assert engine._hist_corpus.shape == (len(engine.index), 32)
+    np.testing.assert_allclose(
+        engine._hist_corpus[-3:].numpy(),
+        np.asarray(ref.engine._hist_corpus)[-3:], atol=1e-5)
+    user_id = int(engine.users.arrays["user_id"][2])
+    ref_user = ref.engine.get_user(user_id)
+    history = [*ref_user.history[:2], ref_user.history[0].model_copy(
+        update={"movie_id": 999002, "movie_rn": 9002, "datetime": 10**12})]
+    ref_user = ref_user.model_copy(update={
+        "user_id": 0, "user_rn": 0, "target": None, "history": history})
+    body = {"user": json.loads(ref_user.model_dump_json()), "top_k": 10}
+    got = dispatch(port, "recommend_with_user", body)
+    assert_same_answers(got, ref_user_answer(ref, ref_user, 10))
+    assert not {999002} & {c["movie_id"] for c in got}
+    for user_id in [int(u) for u in engine.users.arrays["user_id"][:4]]:
+        assert_same_answers(
+            dispatch(port, "recommend_with_user_id",
+                     {"user_id": user_id, "top_k": 10}),
+            ref_user_answer(ref, ref.engine.get_user(user_id), 10))
+    assert isinstance(engine.get_item(999001), ItemQuery)

@@ -3,9 +3,10 @@
 The machine with the card has torch, numpy and scipy but no JAX, flax,
 optax, orbax, msgpack, pandas, pyarrow, pydantic or PyYAML. A
 `sys.meta_path` finder refuses those here, in a fresh interpreter, while
-every module of the port and `chip_smoke.py` is imported, and the two
-file formats the history tower adds (flax msgpack, the user store) are
-written and read.
+every module of the port and `chip_smoke.py` is imported (the native
+tokenizer and BM25 bindings and the serve CLI among them), the two file
+formats the history tower adds (flax msgpack, the user store) are
+written and read, and the native tokenizer and BM25 build and answer.
 """
 
 import pathlib
@@ -30,8 +31,18 @@ import numpy as np
 import xfmr_rec_torch
 names = [info.name for info in pkgutil.walk_packages(
     xfmr_rec_torch.__path__, prefix="xfmr_rec_torch.")]
+required = {{"xfmr_rec_torch.native.tokenizer_native",
+            "xfmr_rec_torch.native.bm25_native",
+            "xfmr_rec_torch.serving.prepare"}}
+assert required <= set(names), required - set(names)
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
+from xfmr_rec_torch.index.mips import BM25Index
+from xfmr_rec_torch.models.tokenizer import HashingTokenizer
+tok = HashingTokenizer(max_length=8)
+texts = ["Toy Story", "\u212aelvin"]
+assert (tok.encode_batch(texts) == tok.encode_batch(texts, native=False)).all()
+assert BM25Index([{{"t": "toy story"}}, {{"t": "heat"}}]).search("heat")[0][0] == 1
 from xfmr_rec_torch.utils import flax_msgpack
 tree = {{"a": {{"b": np.arange(6, dtype=np.float32).reshape(2, 3)}}}}
 back = flax_msgpack.loads(flax_msgpack.dumps(tree))

@@ -138,11 +138,22 @@ def test_save_load_across_packages(tmp_path, dtype):
 
 
 def test_unported_surfaces_raise():
-    _, port = build(300, 11, method="scan")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.add_items(np.zeros((1, DIM)), [1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.remove_items([1])
+    """add_items / remove_items are ported: the same mutation on both
+    packages leaves the same ids and answers (tests/test_torch_mutation.py
+    holds the rest)."""
+    ref, port = build(300, 11, method="scan")
+    extra = dyadic(12, 4)
+    for index in (ref, port):
+        index.add_items(extra, [1, 2, 3, 4],
+                        metadata=[{"movie_text": "new"}] * 4)
+        index.remove_items([10, 2])
+    np.testing.assert_array_equal(port.ids, np.asarray(ref.ids))
+    assert port.get_id(3) == ref.get_id(3) == {"movie_text": "new",
+                                               "movie_id": 3}
+    queries = dyadic(13, 4)
+    got, want = port.search(queries, top_k=6), ref.search(queries, top_k=6)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
 
 
 def test_auto_method_picks_scan_from_65536_items():

@@ -6,7 +6,9 @@ rewritten to `"method": "scan"`, so both engines run the packed scan at
 this small size, and its `users.parquet` is converted to the port's
 `users.npz` with `UserStore.from_rows`. The port loads it without JAX
 (portable.json + encoder.npz + index/ + users.npz) and must answer the
-same ids.
+same ids. After the same `add_items` on both engines they still answer
+the same ids, and the port's keyword search over items and users returns
+the rows of the JAX package's Python BM25.
 """
 
 import concurrent.futures
@@ -23,14 +25,16 @@ import pytest
 from tests.test_serving import build_artifact
 from xfmr_rec_torch.serving.batching import MicroBatcher
 from xfmr_rec_torch.serving.engine import RecommenderEngine as PortEngine
-from xfmr_rec_torch.serving.schemas import NotFoundError, Query
+from xfmr_rec_torch.serving.schemas import ItemQuery, NotFoundError, Query
 from xfmr_rec_torch.serving.service import (
     RecService,
     dispatch,
     make_server,
 )
 from xfmr_rec_torch.serving.users import UserStore
+from xfmr_rec_tpu.index.mips import BM25Index as RefBM25
 from xfmr_rec_tpu.serving.engine import RecommenderEngine as RefEngine
+from xfmr_rec_tpu.serving.schemas import ItemQuery as RefItemQuery
 from xfmr_rec_tpu.serving.schemas import Query as RefQuery
 
 TEXTS = ["comedy", "action thriller", "a quiet drama about family", ""]
@@ -132,7 +136,10 @@ def test_microbatcher_burst_matches_engine(engines):
         assert firm <= {c.movie_id for c in got}
 
 
-def test_dispatch_and_not_ported(engines):
+def test_dispatch_and_not_ported(artifact, engines):
+    """Every endpoint dispatches; keyword search answers, add_items is
+    refused without the gate, and the one refusal left is an index kind
+    the port does not serve."""
     _, port = engines
     service = RecService(port)
     out = dispatch(service, "recommend_with_query",
@@ -142,8 +149,67 @@ def test_dispatch_and_not_ported(engines):
     user_id = int(port.users.arrays["user_id"][0])
     assert dispatch(service, "user_id", {"user_id": user_id})[
         "user_id"] == user_id
-    with pytest.raises(NotImplementedError, match="BM25"):
-        dispatch(service, "search_items_text", {"query": "comedy"})
+    hits = dispatch(service, "search_items_text",
+                    {"query": "drama", "top_k": 5})
+    assert hits and {"movie_id", "movie_text", "score"} <= set(hits[0])
+    with pytest.raises(PermissionError, match="allow_catalog_mutation"):
+        dispatch(service, "add_items", {"items": []})
+    for kind in ("ivf", "sharded"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PortEngine(artifact, index_kind=kind, device="cpu")
+
+
+def test_text_search_matches_jax_oracle(engines):
+    ref, port = engines
+    items = RefBM25(ref.index.metadata, native=False)
+    users = list(ref._users_by_id.values())
+    user_fts = RefBM25(users, text_col="user_text", native=False)
+    for query in ["comedy drama", "Savage storm", "1995", "F 25", "zzz", ""]:
+        want = items.search(query, top_k=10)
+        got = port.search_items_text(query, top_k=10)
+        assert [g["movie_id"] for g in got] == [
+            int(ref.index.ids[r]) for r, _ in want]
+        np.testing.assert_allclose([g["score"] for g in got],
+                                   [sc for _, sc in want], rtol=1e-5)
+        want = user_fts.search(query, top_k=10)
+        got = port.search_users_text(query, top_k=10)
+        assert [(g["user_id"], g["user_text"]) for g in got] == [
+            (int(users[r]["user_id"]), users[r]["user_text"])
+            for r, _ in want]
+        np.testing.assert_allclose([g["score"] for g in got],
+                                   [sc for _, sc in want], rtol=1e-5)
+
+
+NEW_ITEMS = [
+    dict(movie_rn=0, movie_id=900000 + i,
+         movie_text=f'{{"title": "Zebra Nights {i} (2031)", '
+                    f'"genres": ["Comedy", "Zebra{i}"]}}')
+    for i in range(3)
+]
+
+
+def test_add_items_same_answers_as_jax_engine(artifact):
+    ref = RefEngine(artifact, warmup=False)
+    port = PortEngine(artifact, device="cpu", warmup=False)
+    assert ref.add_items([RefItemQuery(**i) for i in NEW_ITEMS]) == 3
+    assert port.add_items([ItemQuery(**i) for i in NEW_ITEMS]) == 3
+    np.testing.assert_array_equal(port.index.ids, ref.index.ids)
+    assert port.index.method == ref.index.method == "scan"
+    assert port.index._corpus_maxnorm == pytest.approx(
+        ref.index._corpus_maxnorm, rel=1e-6)
+    texts = TEXTS + [i["movie_text"] for i in NEW_ITEMS]
+    for text in texts:
+        want = ref.search_items(RefQuery(text=text), top_k=10)
+        got = port.search_items(Query(text=text), top_k=10)
+        assert [c.movie_id for c in got] == [c.movie_id for c in want]
+        np.testing.assert_allclose(
+            [c.score for c in got], [c.score for c in want], atol=1e-4)
+    for item in NEW_ITEMS:
+        got = port.search_items(Query(text=item["movie_text"]), top_k=10)
+        assert item["movie_id"] in [c.movie_id for c in got]
+        assert port.get_item(item["movie_id"]).movie_text == item["movie_text"]
+    hits = port.search_items_text("zebra1", top_k=3)
+    assert [h["movie_id"] for h in hits] == [900001]
 
 
 def test_http_round_trip(engines):
@@ -187,8 +253,13 @@ def test_http_round_trip(engines):
         want = ref.search_items(ref.embed_user_query(user),
                                 exclude_item_ids=seen, top_k=5)
         assert [c["movie_id"] for c in body] == [c.movie_id for c in want]
-        assert post("search_items_text", {"query": "comedy"})[0] == 501
-        assert post("add_items", {"items": []})[0] == 501
+        status, body = post("search_items_text", {"query": "drama"})
+        assert status == 200 and body
+        assert body == port.search_items_text("drama")
+        status, body = post("search_users_text", {"query": "F", "top_k": 3})
+        assert status == 200 and len(body) == 3
+        assert {"user_id", "user_text", "score"} <= set(body[0])
+        assert post("add_items", {"items": []})[0] == 403
         assert post("drop_tables", {})[0] == 404
         with urllib.request.urlopen(f"{base}/healthz", timeout=30) as resp:
             assert json.loads(resp.read()) == {"status": "ok"}

@@ -9,14 +9,20 @@ one matmul and a stable top-k. The on-disk layout (`corpus.npz` +
 `index.json`) is the JAX package's, so an index saved by either package
 loads in the other.
 
-Not ported yet (ROADMAP.md, Queue 1): BM25 text search and catalog
-mutation (`add_items`/`remove_items`).
+`BM25Index` is keyword search over the metadata text, in C++
+(`native/bm25.cpp`) with a numpy oracle behind `native=False`;
+`RetrievalIndex.search_text` rides it. `add_items` / `remove_items`
+mutate the catalog in place: the corpus grows or compacts on the card,
+and what was cached for the old length (the padded scan corpus, the text
+index) is dropped.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import pathlib
+import re
 
 import numpy as np
 import torch
@@ -37,8 +43,6 @@ from xfmr_rec_torch.ops.topk_f32 import (
 )
 
 NEG_INF = float("-inf")
-
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1)"
 
 
 def _apply_exclusions(
@@ -107,6 +111,120 @@ def exact_topk(
     return best_scores, best_pos
 
 
+def _quantize(
+    embeddings: np.ndarray | torch.Tensor, device: torch.device
+) -> tuple[torch.Tensor, torch.Tensor, float]:
+    """Per-item symmetric int8 quantization, c_i ~= scale_i * q_i, on the
+    host in the reference's numpy arithmetic (so both packages store
+    identical rows and scales): the int8 rows and (1, N) scales on
+    `device`, and the largest dequantized row norm."""
+    emb = np.asarray(
+        embeddings.cpu() if torch.is_tensor(embeddings) else embeddings,
+        dtype=np.float32,
+    )
+    scale = np.maximum(np.abs(emb).max(axis=1) / 127.0, 1e-12)
+    quant = np.clip(np.round(emb / scale[:, None]), -127, 127).astype(np.int8)
+    maxnorm = float(
+        (np.linalg.norm(quant.astype(np.float32), axis=1) * scale).max(
+            initial=0.0
+        )
+    )
+    return (
+        torch.from_numpy(quant).to(device),
+        torch.from_numpy(scale.astype(np.float32).reshape(1, -1)).to(device),
+        maxnorm,
+    )
+
+
+_BM25_TOKEN = re.compile(r"[a-z0-9]+")
+
+
+class BM25Index:
+    """Okapi BM25 over one text column of metadata rows (k1 = 1.2,
+    b = 0.75; positive scores only, ordered by score then row).
+
+    The build and the search run in C++ (`native/bm25.cpp`); with
+    `native=False` they run here, in numpy, as the oracle. The two give
+    the same rows and bit-identical scores: the oracle's arithmetic is
+    the reference's Python loop with every float32 step spelled out (the
+    length norm in float32, each term in float64 added to the float32
+    score), which the C++ repeats. `text_col=None` takes the first
+    string column of the first non-empty row.
+    """
+
+    K1 = 1.2
+    B = 0.75
+
+    def __init__(
+        self,
+        metadata: list[dict],
+        *,
+        text_col: str | None = None,
+        native: bool = True,
+    ) -> None:
+        if text_col is None:
+            sample = next((m for m in metadata if m), {})
+            text_col = next(
+                (k for k, v in sample.items() if isinstance(v, str)), None
+            )
+        self.text_col = text_col
+        self._native = None
+        if text_col is None:
+            return
+        texts = [str(m.get(text_col, "")) for m in metadata]
+        if native:
+            from xfmr_rec_torch.native.bm25_native import NativeBM25
+
+            self._native = NativeBM25(texts)
+            return
+        postings: dict[str, dict[int, int]] = {}
+        lengths = []
+        for row, text in enumerate(texts):
+            tokens = _BM25_TOKEN.findall(text.lower())
+            lengths.append(len(tokens) or 1)
+            for tok in tokens:
+                bucket = postings.setdefault(tok, {})
+                bucket[row] = bucket.get(row, 0) + 1
+        self._postings = {
+            tok: (
+                np.fromiter(bucket.keys(), np.int64, len(bucket)),
+                np.fromiter(bucket.values(), np.int64, len(bucket)),
+            )
+            for tok, bucket in postings.items()
+        }
+        self._doc_lens = np.asarray(lengths, dtype=np.float32)
+        self._avg_len = (
+            float(self._doc_lens.mean()) if len(lengths) else 1.0
+        )
+
+    def search(
+        self, query: str, *, top_k: int = 10
+    ) -> list[tuple[int, float]]:
+        """Top matching (row, score) pairs, positive scores only."""
+        if self.text_col is None:
+            return []
+        if self._native is not None:
+            return self._native.search(query, top_k=top_k)
+        f32 = np.float32
+        n_docs = len(self._doc_lens)
+        scores = np.zeros(n_docs, dtype=f32)
+        for tok in _BM25_TOKEN.findall(query.lower()):
+            plist = self._postings.get(tok)
+            if plist is None:
+                continue
+            rows, tfs = plist
+            df = len(rows)
+            idf = math.log(1.0 + (n_docs - df + 0.5) / (df + 0.5))
+            denom = tfs.astype(f32) + f32(self.K1) * (
+                f32(1 - self.B)
+                + f32(self.B) * self._doc_lens[rows] / f32(self._avg_len)
+            )
+            term = idf * tfs * (self.K1 + 1) / denom.astype(np.float64)
+            scores[rows] = (scores[rows].astype(np.float64) + term).astype(f32)
+        order = np.argsort(-scores, kind="stable")[:top_k]
+        return [(int(r), float(scores[r])) for r in order if scores[r] > 0]
+
+
 class CorpusMetadata:
     """Host-side id/metadata surface: `ids`, `_id_to_pos`, `metadata`,
     `id_col` are set by the subclass."""
@@ -127,6 +245,24 @@ class CorpusMetadata:
         for row, id_list in enumerate(id_lists):
             for col, id_val in enumerate(id_list[:width]):
                 out[row, col] = self._id_to_pos.get(int(id_val), num_items)
+        return out
+
+    def search_text(
+        self, query: str, *, top_k: int = 10, text_col: str | None = None
+    ) -> list[dict]:
+        """Keyword (BM25) search over the metadata text: the top matching
+        rows, each with its id and score. The text index is built at the
+        first call and dropped by a catalog mutation."""
+        fts = getattr(self, "_fts", None)
+        if fts is None or self._fts_col != text_col:
+            fts = BM25Index(self.metadata, text_col=text_col)
+            self._fts, self._fts_col = fts, text_col
+        out = []
+        for row, score in fts.search(query, top_k=top_k):
+            entry = dict(self.metadata[row])
+            entry[self.id_col] = int(self.ids[row])
+            entry["score"] = score
+            out.append(entry)
         return out
 
     def get_id(self, id_val: int | None) -> dict:
@@ -179,27 +315,11 @@ class RetrievalIndex(CorpusMetadata):
         self.chunk_size = chunk_size
         self.dtype = dtype
         if dtype == "int8":
-            # per-item symmetric quantization, c_i ~= scale_i * q_i (same
-            # numpy arithmetic as the reference, so both packages store
-            # identical int8 rows and scales)
-            emb = np.asarray(
-                embeddings.cpu() if torch.is_tensor(embeddings) else embeddings,
-                dtype=np.float32,
+            self.corpus, self._scales, self._corpus_maxnorm = _quantize(
+                embeddings, self.device
             )
-            scale = np.maximum(np.abs(emb).max(axis=1) / 127.0, 1e-12)
-            quant = np.clip(
-                np.round(emb / scale[:, None]), -127, 127
-            ).astype(np.int8)
-            self.corpus = torch.from_numpy(quant).to(self.device)
-            self._scales = torch.from_numpy(
-                scale.astype(np.float32).reshape(1, -1)
-            ).to(self.device)
             self._query_dtype = torch.bfloat16
             method = "scan"  # int8 rides the dequantizing scan kernel
-            self._corpus_maxnorm = float(
-                (np.linalg.norm(quant.astype(np.float32), axis=1) * scale)
-                .max(initial=0.0)
-            )
         else:
             emb = torch.as_tensor(embeddings, dtype=torch.float32).to(
                 self.device
@@ -215,7 +335,7 @@ class RetrievalIndex(CorpusMetadata):
         self.method = method
         self.scan_kernel = scan_kernel
         self.last_certified_stats: dict = {}
-        self._scan_state = None
+        self._invalidate()
 
     @property
     def dim(self) -> int:
@@ -561,13 +681,118 @@ class RetrievalIndex(CorpusMetadata):
             )
         return scores, positions
 
-    def add_items(self, *args, **kwargs) -> None:
-        msg = f"RetrievalIndex.add_items is {_NOT_PORTED}"
-        raise NotImplementedError(msg)
+    # -- catalog mutation -------------------------------------------------
+    def _invalidate(self) -> None:
+        """Drop what was built for the old corpus: the padded scan corpus
+        and its geometry, and the text index (rebuilt from the mutated
+        metadata at its next use)."""
+        self._scan_state = None
+        self._fts = None
+        self._fts_col = None
 
-    def remove_items(self, *args, **kwargs) -> None:
-        msg = f"RetrievalIndex.remove_items is {_NOT_PORTED}"
-        raise NotImplementedError(msg)
+    def _check_mutated_length(self, new_len: int) -> None:
+        """Refuse, at mutation time, a length that a chunked dense index
+        could not search (`exact_topk` needs num_items % chunk_size == 0
+        once num_items > chunk_size)."""
+        if (
+            self.chunk_size is not None
+            and new_len > self.chunk_size
+            and new_len % self.chunk_size != 0
+        ):
+            msg = (
+                f"mutation would leave {new_len} items, not divisible by "
+                f"chunk_size={self.chunk_size}; the next chunked search "
+                "would fail. Batch mutations to a multiple of chunk_size "
+                "or rebuild the index with chunk_size=None."
+            )
+            raise ValueError(msg)
+
+    def add_items(
+        self,
+        embeddings: np.ndarray | torch.Tensor,
+        ids: np.ndarray | list[int],
+        metadata: list[dict] | None = None,
+    ) -> None:
+        """Append items to the index (ids must be new).
+
+        The new rows join the corpus on the card; an int8 index quantizes
+        them with their own scales, so the existing rows stay bit for
+        bit. The score bound's max norm rises to cover the new rows. Not
+        safe against searches running in other threads:
+        `RecommenderEngine.add_items` publishes a new index instead.
+        """
+        ids = np.asarray(ids)
+        if not torch.is_tensor(embeddings):
+            embeddings = np.asarray(embeddings, dtype=np.float32)
+        if embeddings.ndim != 2 or embeddings.shape[0] != len(ids):
+            msg = "embeddings and ids must align"
+            raise ValueError(msg)
+        if len(ids) == 0:
+            return
+        if embeddings.shape[1] != self.dim:
+            msg = f"dim mismatch: corpus {self.dim}, new {embeddings.shape[1]}"
+            raise ValueError(msg)
+        if metadata is not None and len(metadata) != len(ids):
+            msg = "metadata and ids must align"
+            raise ValueError(msg)
+        new_ids = [int(i) for i in ids.tolist()]
+        if len(set(new_ids)) != len(new_ids):
+            msg = "duplicate ids within the added batch"
+            raise ValueError(msg)
+        clashes = [i for i in new_ids if i in self._id_to_pos]
+        if clashes:
+            msg = f"ids already in the index: {clashes[:8]}"
+            raise ValueError(msg)
+        self._check_mutated_length(len(self.ids) + len(new_ids))
+        if self._scales is not None:
+            quant, scales, added_maxnorm = _quantize(embeddings, self.device)
+            self.corpus = torch.cat([self.corpus, quant])
+            self._scales = torch.cat([self._scales, scales], dim=1)
+        else:
+            emb = torch.as_tensor(embeddings, dtype=torch.float32).to(
+                self.device
+            )
+            self.corpus = torch.cat([self.corpus, emb.to(self.corpus.dtype)])
+            added_maxnorm = float(torch.linalg.vector_norm(emb, dim=1).max())
+        self._corpus_maxnorm = max(self._corpus_maxnorm, added_maxnorm)
+        base = len(self.ids)
+        self.ids = np.concatenate([self.ids, ids])
+        self._ids32 = self.ids.astype(np.int32)
+        self.metadata = list(self.metadata) + (
+            list(metadata) if metadata is not None else [{} for _ in new_ids]
+        )
+        for offset, id_val in enumerate(new_ids):
+            self._id_to_pos[id_val] = base + offset
+        self._invalidate()
+
+    def remove_items(self, ids: list[int] | np.ndarray) -> None:
+        """Delete items by id (every id must be present).
+
+        The corpus compacts on the card (no tombstones; positions after a
+        removed row shift down). The score bound's max norm is kept as it
+        was: removal cannot raise it, and keeping it keeps the packed-key
+        quantum, so the surviving rows keep their keys exactly.
+        """
+        drop = {int(i) for i in np.asarray(ids).tolist()}
+        missing = sorted(i for i in drop if i not in self._id_to_pos)
+        if missing:
+            msg = f"ids not in the index: {missing[:8]}"
+            raise ValueError(msg)
+        if not drop:
+            return
+        self._check_mutated_length(len(self.ids) - len(drop))
+        keep = ~np.isin(self.ids, np.fromiter(drop, np.int64, len(drop)))
+        rows = torch.from_numpy(np.flatnonzero(keep)).to(self.device)
+        self.corpus = self.corpus.index_select(0, rows)
+        if self._scales is not None:
+            self._scales = self._scales.index_select(1, rows)
+        self.ids = self.ids[keep]
+        self._ids32 = self.ids.astype(np.int32)
+        self.metadata = [
+            m for m, k in zip(self.metadata, keep, strict=True) if k
+        ]
+        self._id_to_pos = {int(i): p for p, i in enumerate(self.ids)}
+        self._invalidate()
 
     # -- persistence ------------------------------------------------------
     def save(self, path: str | pathlib.Path) -> None:

@@ -5,6 +5,11 @@ the same regex, the same signed-seed 64-bit FNV-1a, the same reserved
 ids and the same corpus-frequency vocab (`build_vocab`), so both
 packages give identical id arrays for the same text. The config is a
 dataclass with the reference's field names and defaults.
+
+`encode_batch` runs the C++ tokenizer (`native/tokenizer.cpp`, built at
+first use) unless the caller passes `native=False`; the Python path is
+its oracle, and the two give the same ids on every input. `encode` (one
+text) stays Python.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import pathlib
 import re
 
 import numpy as np
+
+from xfmr_rec_torch.native import tokenizer_native
 
 # Reserved token ids. PAD must be 0: attention masks and pooling treat
 # id 0 as padding.
@@ -117,16 +124,32 @@ class HashingTokenizer:
         return out
 
     def encode_batch(
-        self, texts: list[str], max_length: int | None = None
+        self,
+        texts: list[str],
+        max_length: int | None = None,
+        *,
+        native: bool = True,
     ) -> np.ndarray:
         """Texts -> (batch, max_length, num_hashes) int32 (squeezed to
-        (batch, max_length) when num_hashes == 1)."""
-        max_length = max_length or self.config.max_length
-        out = np.zeros(
-            (len(texts), max_length, self.config.num_hashes), dtype=np.int32
-        )
-        for i, text in enumerate(texts):
-            out[i] = self.encode(text, max_length)
+        (batch, max_length) when num_hashes == 1); `native=False` runs
+        the Python path."""
+        cfg = self.config
+        max_length = max_length or cfg.max_length
+        if native:
+            out = tokenizer_native.encode_batch(
+                texts,
+                max_length=max_length,
+                num_hashes=cfg.num_hashes,
+                vocab_size=cfg.vocab_size,
+                lowercase=cfg.lowercase,
+                add_cls=cfg.add_cls,
+            )
+        else:
+            out = np.zeros(
+                (len(texts), max_length, cfg.num_hashes), dtype=np.int32
+            )
+            for i, text in enumerate(texts):
+                out[i] = self.encode(text, max_length)
         if self.config.num_hashes == 1:
             return out[..., 0]
         return out
@@ -164,6 +187,7 @@ class VocabTokenizer:
         }
         self.oov_start = NUM_RESERVED + len(vocab)
         self.oov_buckets = self.config.vocab_size - self.oov_start
+        self._native: tokenizer_native.VocabHandle | None = None
 
     def save(self, path: str | pathlib.Path) -> None:
         pathlib.Path(path).write_text(
@@ -201,10 +225,27 @@ class VocabTokenizer:
         return out
 
     def encode_batch(
-        self, texts: list[str], max_length: int | None = None
+        self,
+        texts: list[str],
+        max_length: int | None = None,
+        *,
+        native: bool = True,
     ) -> np.ndarray:
-        """Texts -> (batch, max_length) int32, 0-padded."""
+        """Texts -> (batch, max_length) int32, 0-padded; `native=False`
+        runs the Python path."""
         max_length = max_length or self.config.max_length
+        if native:
+            if self._native is None:
+                # the token -> id map is built once, at first use
+                self._native = tokenizer_native.VocabHandle(self.vocab)
+            return self._native.encode_batch(
+                texts,
+                max_length=max_length,
+                oov_start=self.oov_start,
+                oov_buckets=self.oov_buckets,
+                lowercase=self.config.lowercase,
+                add_cls=self.config.add_cls,
+            )
         out = np.zeros((len(texts), max_length), dtype=np.int32)
         for i, text in enumerate(texts):
             out[i] = self.encode(text, max_length)

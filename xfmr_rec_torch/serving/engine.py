@@ -17,20 +17,27 @@ their embeddings gathered from the packaged corpus (f32 from the index's
 stored values) on the device. Query vectors are padded to the index
 width: the constant 1 paired with the bias column, the CF columns.
 
-Not ported yet (ROADMAP.md, Queue 1): IVF and sharded indexes, live
-catalog mutation and BM25 text search.
+`add_items` grows the live catalog: the new items are encoded by the
+item tower, a new index over the appended corpus is built and warmed on
+the card, and then published by one reference swap, so searches never
+lock and each reads one consistent index. `search_items_text` and
+`search_users_text` are BM25 keyword search over the item metadata and
+the user store's profile text.
+
+Not ported yet (ROADMAP.md, Queue 1): IVF and sharded indexes.
 """
 
 from __future__ import annotations
 
 import json
 import pathlib
+import threading
 
 import numpy as np
 import torch
 
 from xfmr_rec_torch.device import resolve_device
-from xfmr_rec_torch.index.mips import RetrievalIndex
+from xfmr_rec_torch.index.mips import BM25Index, RetrievalIndex
 from xfmr_rec_torch.models.cf import CFChannel
 from xfmr_rec_torch.models.convert import (
     build_encoder,
@@ -135,6 +142,9 @@ class RecommenderEngine:
             if (path / USERS_NPZ).exists()
             else None
         )
+        self._user_fts: BM25Index | None = None
+        # serializes catalog mutations; searches take no lock
+        self._catalog_lock = threading.Lock()
         if warmup:
             # first search builds the kernels and pads the corpus, so
             # the first live request does not pay for it
@@ -234,6 +244,92 @@ class RecommenderEngine:
     def process_item(self, item: ItemQuery) -> Query:
         return Query(text=item.movie_text)
 
+    def _encode_items(self, items: list[ItemQuery]) -> torch.Tensor:
+        """(n, index width) f32 rows of new items on the device: the item
+        tower (text, identity channels, bias column) and, with the CF
+        channel, zero CF factors and zero popularity (no train
+        interactions)."""
+        tokens = torch.from_numpy(
+            self.tokenizer.encode_batch([item.movie_text for item in items])
+        ).to(self.device)
+        if isinstance(self.encoder, TwoTowerModel):
+            rns = torch.tensor(
+                [int(item.movie_rn) for item in items], device=self.device
+            )
+            rows = self.encoder.encode_items(tokens, rns)
+        else:
+            rows = self.encoder(tokens)
+        rows = rows.float()
+        if self.cf is not None:
+            rows = torch.nn.functional.pad(rows, (0, self.cf.rank + 1))
+        return rows
+
+    def add_items(self, items: list[ItemQuery]) -> int:
+        """Add items to the live catalog; returns how many were added.
+
+        Builds a new `RetrievalIndex` over the appended corpus (on the
+        card; an int8 corpus is dequantized through the host and
+        re-quantized, as the reference does), runs one search on it so
+        its padded scan corpus exists before it serves, and then swaps
+        `self.index`. With the history tower the gather corpus grows
+        first: a user query reads positions from the index and rows from
+        `_hist_corpus` afterwards, and both only grow. Ids must be new;
+        concurrent calls serialize. The live engine offers no deletion:
+        compaction would move positions under a user query in flight.
+        """
+        if not items:
+            return 0
+        new_ids = [int(item.movie_id) for item in items]
+        if len(set(new_ids)) != len(new_ids):
+            dupes = sorted({i for i in new_ids if new_ids.count(i) > 1})
+            msg = f"duplicate ids within the added batch: {dupes[:8]}"
+            raise ValueError(msg)
+        with self._catalog_lock:
+            old = self.index
+            clashes = [i for i in new_ids if i in old._id_to_pos]
+            if clashes:
+                msg = f"item ids already in the catalog: {clashes[:8]}"
+                raise ValueError(msg)
+            rows = self._encode_items(items)
+            if old._scales is not None:
+                corpus = torch.cat([
+                    old.corpus.float() * old._scales[0][:, None], rows
+                ]).cpu().numpy()
+            else:
+                corpus = torch.cat([old.corpus, rows.to(old.corpus.dtype)])
+            new_index = RetrievalIndex(
+                corpus,
+                np.concatenate([old.ids, np.asarray(new_ids)]),
+                metadata=list(old.metadata) + [
+                    {
+                        "movie_rn": int(item.movie_rn),
+                        "movie_id": int(item.movie_id),
+                        "movie_text": item.movie_text,
+                    }
+                    for item in items
+                ],
+                id_col=old.id_col,
+                dtype=old.dtype,
+                chunk_size=old.chunk_size,
+                method=old.method,
+                scan_kernel=old.scan_kernel,
+                device=self.device,
+            )
+            if self._hist_corpus is not None:
+                self._hist_corpus = torch.cat([
+                    self._hist_corpus,
+                    rows[:, : self.model_config.hidden_size],
+                ])
+            new_index.search(
+                np.zeros((1, new_index.dim), np.float32), top_k=TOP_K
+            )
+            self.index = new_index
+        return len(items)
+
+    def search_items_text(self, query: str, *, top_k: int = 10) -> list[dict]:
+        """BM25 keyword search over the item text."""
+        return self.index.search_text(query, top_k=top_k)
+
     # -- user store ------------------------------------------------------
     def get_user(self, user_id: int) -> UserQuery:
         if self.users is None:
@@ -246,6 +342,26 @@ class RecommenderEngine:
 
     def process_user(self, user: UserQuery) -> Query:
         return Query(text=user.user_text)
+
+    def search_users_text(self, query: str, *, top_k: int = 10) -> list[dict]:
+        """BM25 keyword search over the user store's profile text, built
+        at the first call: `user_id`, `user_text` and `score` per hit."""
+        if self.users is None:
+            return []
+        ids = self.users.arrays["user_id"]
+        texts = self.users.arrays["user_text"]
+        if self._user_fts is None:
+            self._user_fts = BM25Index(
+                [{"user_text": str(t)} for t in texts], text_col="user_text"
+            )
+        return [
+            {
+                "user_id": int(ids[row]),
+                "user_text": str(texts[row]),
+                "score": score,
+            }
+            for row, score in self._user_fts.search(query, top_k=top_k)
+        ]
 
     def _history_inputs(
         self, entries: list[Activity], width: int, bag: bool

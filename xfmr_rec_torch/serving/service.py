@@ -6,9 +6,10 @@ recommend_with_query, item_id, process_item, recommend_with_item,
 recommend_with_item_id, user_id, process_user, recommend_with_user,
 recommend_with_user_id (the user's history and target items excluded;
 the query vector from the model's user tower, searched as it is),
-model_name, model_version, plus
-GET /healthz and /metrics. BM25 text search and live catalog mutation
-answer 501 until their slice is ported (ROADMAP.md, Queue 1).
+search_items_text, search_users_text (BM25 keyword search), add_items
+(live catalog growth, refused with 403 unless the service was started
+with `allow_catalog_mutation=True`), model_name, model_version, plus
+GET /healthz and /metrics.
 """
 
 from __future__ import annotations
@@ -34,17 +35,6 @@ from xfmr_rec_torch.serving.schemas import (
 logger = logging.getLogger(__name__)
 
 
-class NotPortedError(NotImplementedError):
-    """An endpoint of the reference service this port does not serve
-    yet; the HTTP layer maps it to 501."""
-
-
-def _not_ported(endpoint: str, needs: str) -> NotPortedError:
-    return NotPortedError(
-        f"{endpoint} needs {needs}, not ported yet (ROADMAP.md, Queue 1)"
-    )
-
-
 class RecService:
     def __init__(
         self,
@@ -53,12 +43,16 @@ class RecService:
         *,
         micro_batch: int | None = None,
         micro_batch_wait_ms: float = 5.0,
+        allow_catalog_mutation: bool = False,
     ) -> None:
         """`micro_batch`: when set, concurrent text-query searches
         coalesce into batched dispatches of up to this size; queries
-        carrying an embedding bypass the batcher."""
+        carrying an embedding bypass the batcher.
+        `allow_catalog_mutation`: expose `add_items`, which lets any
+        client of the port grow the catalog (off: it answers 403)."""
         self.engine = engine
         self._version = model_version_str
+        self.allow_catalog_mutation = allow_catalog_mutation
         self.batcher = None
         if micro_batch:
             from xfmr_rec_torch.serving.batching import MicroBatcher
@@ -110,6 +104,19 @@ class RecService:
 
     def process_item(self, item: ItemQuery) -> Query:
         return self.engine.process_item(item)
+
+    def add_items(self, items: list[dict] | list[ItemQuery]) -> dict:
+        """Append items to the live catalog in one batch (ids must be
+        new): {"added", "num_items"}."""
+        if not self.allow_catalog_mutation:
+            msg = (
+                "add_items is disabled: start the service with "
+                "allow_catalog_mutation=True (--allow-catalog-mutation) "
+                "to expose live catalog mutation"
+            )
+            raise PermissionError(msg)
+        added = self.engine.add_items([ItemQuery.from_dict(i) for i in items])
+        return {"added": added, "num_items": len(self.engine.index)}
 
     def recommend_with_item(
         self,
@@ -171,15 +178,12 @@ class RecService:
             user, exclude_item_ids=exclude_item_ids, top_k=top_k
         )
 
-    # -- not ported yet ------------------------------------------------
-    def search_items_text(self, **_: Any):
-        raise _not_ported("search_items_text", "BM25 text search")
+    # -- keyword search ------------------------------------------------
+    def search_items_text(self, query: str, top_k: int = 10) -> list[dict]:
+        return self.engine.search_items_text(query, top_k=top_k)
 
-    def search_users_text(self, **_: Any):
-        raise _not_ported("search_users_text", "BM25 text search")
-
-    def add_items(self, **_: Any):
-        raise _not_ported("add_items", "live catalog mutation")
+    def search_users_text(self, query: str, top_k: int = 10) -> list[dict]:
+        return self.engine.search_users_text(query, top_k=top_k)
 
     # -- meta ----------------------------------------------------------
     def model_name(self) -> str:
@@ -343,8 +347,9 @@ class _Handler(BaseHTTPRequestHandler):
             response = {"error": f"unknown endpoint {endpoint}"}
         except NotFoundError as exc:
             status, response = 404, {"error": str(exc)}
-        except NotPortedError as exc:
-            status, response = 501, {"error": str(exc)}
+        except PermissionError as exc:
+            # a disabled admin endpoint is the client's error, not a 500
+            status, response = 403, {"error": str(exc)}
         except Exception as exc:  # noqa: BLE001 - request error boundary
             status = 500
             logger.exception("error handling %s", endpoint)
@@ -409,3 +414,12 @@ def make_server(
         {"service": service, "metrics": RequestMetrics()},
     )
     return _Server((host, port), handler)
+
+
+def serve_forever(
+    service: RecService, host: str = "0.0.0.0", port: int = 8000  # noqa: S104
+) -> None:
+    """Serve `service` over HTTP until interrupted."""
+    with make_server(service, host, port) as server:
+        logger.info("serving on %s:%d", host, port)
+        server.serve_forever()
