@@ -25,7 +25,13 @@ printing no result, when there is no card or any phase fails. Phases:
    over HTTP under traffic (no request may fail; the grown index held
    against dense exact top-k); 1,024 items removed from a copy of the
    grown index, then `search_certified("fused")` on it held against
-   dense exact top-k, the surviving rows' packed keys unmoved;
+   dense exact top-k, the surviving rows' packed keys unmoved; the
+   numpy `PortableEncoder` on 1,024 served texts against the card's
+   encoder at f32; the same artifact behind `index_kind="ivf"` with
+   `ivf_certified` (the IVF built, cached and reloaded, `add_items`
+   refused), 64 sequential requests with exclusions over HTTP beside the
+   exact engine's: each certified row == dense top-k over the served
+   rows, each other row the exact engine's answer (kernel 1);
 5. guaranteed-exact search (`search_certified(method="fused")`) at
    2^20 x 64 bf16, B=4096, k=100, against dense exact top-k, with its
    throughput and a profile of one batch, and of one `"f32"` batch
@@ -49,14 +55,18 @@ printing no result, when there is no card or any phase fails. Phases:
    two validations on the dense index (finite logged losses, moved
    parameters, metrics in [0, 1]), 3 steps on the card held against the
    CPU from one init at bf16 and at f32, and the train step's time at
-   batch 32 and 4096 with its device-idle share; (b) a 2^17-item catalog whose eval search
-   runs the scan index (kernel 1), its answers held against dense
-   scores; (c) the artifact of (a) served by `RecommenderEngine`, its
-   answers equal to the trainer's own search;
+   batch 32 and 4096 with its device-idle share, steps 10-20 traced by
+   `profile_dir`, 3 steps with `remat=True` equal to 3 without (dropout
+   on) and the step's peak memory with and without; (b) a 2^17-item
+   catalog whose eval search runs the scan index (kernel 1), its answers
+   held against dense scores, and `cli predict` over its predict users,
+   each row held the same way; (c) the artifact of (a) served by
+   `RecommenderEngine`, its answers equal to the trainer's own search;
 10. the history tower: (a) the repo's flagship (history user tower, 16
    rated slots, InfoNCE) at full width on phase 9's corpus, 300 steps
    through `cli fit` with two validations, 3 card steps against the CPU
-   at bf16 and f32, the step's time at batch 32 and 1024, and the saved
+   at bf16 and f32, remat against plain steps, the step's time at batch
+   32 and 1024, and the saved
    artifact served over HTTP (`recommend_with_user_id` for 64 users in
    one burst, `recommend_with_user` with a request history), every answer
    equal to the trainer's own user vector and search; (b) every item
@@ -67,6 +77,10 @@ printing no result, when there is no card or any phase fails. Phases:
    its oracle; (c) the serve CLI (`python -m
    xfmr_rec_torch.serving.prepare`) on (a)'s artifact, golden checks
    passed;
+11. (run before 9) the IVF probe on clustered 2^20 x 64 corpora (4,096
+   and 512 seeded centres): the build, B=256 certified searches at
+   nprobe 8, each certified row held to dense exact top-k, the probe's
+   ms beside `search_certified("fused")`;
 then the card, one JSON line for the kernels, and the result line.
 """
 
@@ -93,13 +107,14 @@ import torch
 from xfmr_rec_torch.data.module import RecDataModule
 from xfmr_rec_torch.data.prepare import load_table, prepare_movielens
 from xfmr_rec_torch.data.synthetic import generate_movielens
+from xfmr_rec_torch.index.ivf import IVFIndex
 from xfmr_rec_torch.index.mips import BM25Index, RetrievalIndex
 from xfmr_rec_torch.models.convert import torch_name
 from xfmr_rec_torch.models.encoder import ModelConfig, TextEncoder, init_encoder
 from xfmr_rec_torch.models.tokenizer import HashingTokenizer, TokenizerConfig
 from xfmr_rec_torch.ops import kernels, topk, topk_f32
 from xfmr_rec_torch.serving.engine import RecommenderEngine
-from xfmr_rec_torch.serving.schemas import Query
+from xfmr_rec_torch.serving.schemas import ItemQuery, Query
 from xfmr_rec_torch.serving.service import RecService, make_server
 from xfmr_rec_torch.training import cli
 from xfmr_rec_torch.training import module as train_mod
@@ -577,6 +592,7 @@ def phase_serving(dev, card: str) -> dict:
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     root = pathlib.Path(tmp.name)
     texts, _ = synthesize_artifact(root, dev, card)
+    check_portable(root, texts, dev, card)
     t0 = time.perf_counter()
     engine = RecommenderEngine(root, device=dev, warmup=True)
     print(f"engine load + warmup {time.perf_counter() - t0:.2f} s")
@@ -688,6 +704,12 @@ def phase_serving(dev, card: str) -> dict:
         print(f"removal + certified kernel launches: {counts}")
         check(counts["packed_scan"] > 0 and counts["threshold_select"] > 0,
               "certified search on the compacted index skipped a kernel")
+
+        # (e) the IVF probe over the same artifact (counts reset inside)
+        counts = phase_ivf_serving(root, texts, dev, card)["launches"]
+        for name, count_ in counts.items():
+            launches[name] += count_
+        print(f"ivf serving kernel launches: {counts}")
     finally:
         server.shutdown()
         server.server_close()
@@ -909,6 +931,207 @@ def check_removal(engine, rng, dev, card) -> None:
           f"dense exact top-k of the compacted corpus within one key quantum "
           f"({off} held in plain bf16 order instead); {certified_ms:.1f} ms "
           f"host wall, first call on the compacted corpus [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (e, f): the IVF probe over the served catalogue; the portable
+# encoder
+# ---------------------------------------------------------------------------
+IVF_REQUESTS = 64
+# PortableEncoder (numpy f32) against the card's encoder at f32: both
+# f32, with other summation orders and another LayerNorm variance
+# formula (two-pass in numpy, E[x^2] - E[x]^2 in the port); the CPU
+# parity test sees under 1e-5 at these widths
+PORTABLE_TOL = 5e-5
+PORTABLE_TEXTS = 1024
+
+
+def held_to_dense_top_k(dense_row, got_pos, got_scores, k, what,
+                        tol=1e-5) -> None:
+    """An answer that claims to be exact against the dense scores of the
+    rows it searched: the top-k set, up to exactly tied scores at the
+    k-th place, with each score within `tol` of the dense one."""
+    kth = torch.topk(dense_row, k).values[-1]
+    pos = torch.as_tensor(got_pos, device=dense_row.device)
+    check(len(set(got_pos.tolist())) == len(got_pos), f"{what}: duplicates")
+    check(bool((dense_row[pos] >= kth).all()), f"{what}: item below the k-th")
+    check(int((dense_row > kth).sum()) <= len(got_pos)
+          and bool(torch.isin(torch.nonzero(dense_row > kth).squeeze(1),
+                              pos).all()), f"{what}: missed a top item")
+    got = torch.as_tensor(got_scores, device=dense_row.device)
+    check(bool(((got - dense_row[pos]).abs() <= tol).all()),
+          f"{what}: scores differ from dense")
+
+
+def timed_requests(base, requests) -> tuple[list, list[float]]:
+    """`recommend_with_item_id` with exclusions, one at a time: the
+    answers and each request's host ms (HTTP on localhost included)."""
+    bodies, lat = [], []
+    for item_id, excl in requests:
+        t0 = time.perf_counter()
+        bodies.append(post_json(base, "recommend_with_item_id",
+                                {"item_id": item_id,
+                                 "exclude_item_ids": excl, "top_k": 20}))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return bodies, lat
+
+
+def phase_ivf_serving(root: pathlib.Path, texts: list[str], dev,
+                      card: str) -> dict:
+    """The served catalogue (2^20 items at dim 32, the seeded text tower)
+    behind `RecommenderEngine(index_kind="ivf", ivf_certified=True)`:
+    built (k-means, spill, layout), cached under `ivf/`, restarted on the
+    cache; `add_items` refused; 64 sequential `recommend_with_item_id`
+    requests with exclusions over HTTP beside the exact engine's; a
+    certified row == dense top-k over the served rows, a fallback row ==
+    the exact engine's answer (kernel 1)."""
+    launches = {name: 0 for name in kernels.LAUNCHES}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = RecommenderEngine(root, index_kind="ivf", ivf_certified=True,
+                              device=dev)
+    build_s = time.perf_counter() - t0
+    ivf = first.ivf
+    n = len(ivf)
+    check(not first.ivf_cache_hit, "the first IVF load found a cache")
+    check(ivf.num_clusters == max(4, int(4 * math.sqrt(n))),
+          f"{ivf.num_clusters} clusters, not the 4 sqrt(N) rule")
+    split = ", ".join(f"{k} {v:.2f} s" for k, v in ivf.build_seconds.items())
+    print(f"ivf (served catalogue): {n} items at D={ivf.buckets.shape[2]}, "
+          f"{ivf.num_clusters} clusters, bucket {ivf.bucket_size}, fill "
+          f"{ivf.fill:.4f}, radii p50 / max "
+          f"{ivf.radii.median().item():.4f} / {ivf.radii.max().item():.4f}; "
+          f"engine load with the IVF build {build_s:.2f} s host wall "
+          f"({split}; the cache write, the recall probe and the warm-up "
+          f"the rest); probe recall@10 at nprobe {ivf.nprobe} "
+          f"{first.ivf_probe_recall:.4f} [{card}]")
+    assign, buckets = ivf._assign, ivf.buckets
+    del first, ivf
+    t0 = time.perf_counter()
+    engine = RecommenderEngine(root, index_kind="ivf", ivf_certified=True,
+                               device=dev)
+    restart_s = time.perf_counter() - t0
+    check(engine.ivf_cache_hit, "the restart did not load the cached IVF")
+    check(np.array_equal(engine.ivf._assign, assign)
+          and torch.equal(engine.ivf.buckets, buckets),
+          "the cached IVF differs from the build")
+    del buckets
+    print(f"ivf restart on the cache: {restart_s:.2f} s host wall (sha256 "
+          f"of index/corpus.npz, ivf.npz, the layout, the recall probe) "
+          f"[{card}]")
+    try:
+        engine.add_items([ItemQuery(movie_rn=0, movie_id=n + 7,
+                                    movie_text="new")])
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, "add_items answered under index_kind='ivf'")
+    for name, count_ in kernels.launch_counts().items():
+        launches[name] += count_
+
+    exact = RecommenderEngine(root, device=dev)
+    rng = np.random.default_rng(SEED + 11)
+    requests = []
+    for item_id in rng.integers(1, n + 1, size=IVF_REQUESTS):
+        excl = [int(x) for x in rng.integers(1, n + 1, size=3)]
+        requests.append((int(item_id), excl))
+    servers = []
+    try:
+        bases = []
+        for eng in (engine, exact):
+            server = make_server(RecService(eng), port=0)
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            servers.append((server, thread))
+            bases.append(f"http://127.0.0.1:{server.server_address[1]}")
+        rows_before = dict(engine.ivf_rows)
+        kernels.reset_launch_counts()
+        ivf_bodies, ivf_lat = timed_requests(bases[0], requests)
+        fallback_launches = kernels.launch_counts()
+        rows = {k: engine.ivf_rows[k] - rows_before[k] for k in rows_before}
+        exact_bodies, exact_lat = timed_requests(bases[1], requests)
+    finally:
+        for server, thread in servers:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    for name, count_ in fallback_launches.items():
+        launches[name] += count_
+    check(sum(rows.values()) == IVF_REQUESTS, f"ivf rows counted {rows}")
+    check(fallback_launches["packed_scan"] == rows["fallback"],
+          f"{rows['fallback']} fallback rows launched packed_scan "
+          f"{fallback_launches['packed_scan']} times")
+    corpus = engine.index.corpus.float()
+    same_as_exact = certified_rows = 0
+    for (item_id, excl), got, want in zip(requests, ivf_bodies, exact_bodies,
+                                          strict=True):
+        got_ids = [c["movie_id"] for c in got]
+        want_ids = [c["movie_id"] for c in want]
+        excl_all = [*excl, item_id]
+        check(not set(excl_all) & set(got_ids), "ivf: an excluded id came back")
+        q = engine.embed([texts[item_id - 1]])
+        _, _, exact_flag = engine.ivf.search_certified(
+            q, top_k=20, exclude_ids=[excl_all])
+        if exact_flag[0]:
+            certified_rows += 1
+            dense = (torch.from_numpy(q).to(dev).bfloat16().float()
+                     @ corpus.T)[0]
+            dense[torch.tensor([i - 1 for i in excl_all], device=dev)] = (
+                -math.inf)
+            held_to_dense_top_k(dense, np.asarray(got_ids) - 1,
+                                np.asarray([c["score"] for c in got],
+                                           np.float32), 20,
+                                f"ivf certified row (item {item_id})")
+        else:
+            check(got_ids == want_ids, f"ivf fallback row (item {item_id}) "
+                  "differs from the exact engine's answer")
+        same_as_exact += got_ids == want_ids
+    check(certified_rows == rows["certified"],
+          "the certified rows re-probed differ from the served ones")
+    ivf_lat.sort()
+    exact_lat.sort()
+    print(f"ivf serving: {IVF_REQUESTS} sequential recommend_with_item_id "
+          f"requests (top-20, 3 random exclusions and the item itself) over "
+          f"HTTP: ivf_certified p50 {ivf_lat[len(ivf_lat) // 2]:.3f} ms, max "
+          f"{ivf_lat[-1]:.3f} ms; the exact engine p50 "
+          f"{exact_lat[len(exact_lat) // 2]:.3f} ms, max {exact_lat[-1]:.3f} "
+          f"ms; certified {rows['certified']} of {IVF_REQUESTS} (share "
+          f"{rows['certified'] / IVF_REQUESTS:.4f}), each == dense top-20 "
+          f"over the served rows; {rows['fallback']} fallback rows answered "
+          f"by the exact index (packed_scan launched "
+          f"{fallback_launches['packed_scan']} times), each == the exact "
+          f"engine's answer; {same_as_exact} of {IVF_REQUESTS} answers "
+          f"id-for-id equal to the exact engine's; add_items refused "
+          f"[{card}]")
+    return {"launches": launches}
+
+
+def check_portable(root: pathlib.Path, texts: list[str], dev,
+                   card: str) -> None:
+    """`PortableEncoder.embed` (numpy) on served texts against the card's
+    encoder of the same artifact run in f32."""
+    from xfmr_rec_torch.models.convert import build_encoder, load_portable
+    from xfmr_rec_torch.serving.portable import PortableEncoder
+
+    sample = texts[:PORTABLE_TEXTS]
+    t0 = time.perf_counter()
+    got = PortableEncoder.load(root).embed(sample)
+    numpy_s = time.perf_counter() - t0
+    config, _, state = load_portable(root)
+    encoder = build_encoder(
+        dataclasses.replace(config, compute_dtype="float32"), state, dev)
+    tokens = HashingTokenizer(TokenizerConfig(
+        vocab_size=30522, max_length=ENCODER["max_length"])
+    ).encode_batch(sample)
+    want = encoder(torch.from_numpy(tokens).to(dev)).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    check(got.shape == want.shape and err <= PORTABLE_TOL,
+          f"PortableEncoder differs from the card's f32 encoder by {err}")
+    print(f"portable encoder: PortableEncoder.embed (numpy, f32) of "
+          f"{PORTABLE_TEXTS} served texts in {numpy_s:.3f} s host wall; max "
+          f"abs difference from the card's encoder at f32 {err:.2e} "
+          f"(tolerance {PORTABLE_TOL:.0e}) [{card}]")
 
 
 def packed_rows_off_quantum(index, queries, positions, tight, what,
@@ -1773,6 +1996,96 @@ def phase_timings(guaranteed: dict, select: dict, certified: dict,
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the IVF probe on clustered corpora
+# ---------------------------------------------------------------------------
+# tests/test_ivf.py's `_clustered_corpus` recipe at 2^20 x 64: unit
+# centres, sigma a coordinate (a noise norm of about 0.32 at D=64, as
+# 0.08 gives at that test's D=16), rows normalized. Each corpus is built
+# with these spill factors. 4,096 centres is one a cluster at the
+# 4 sqrt(N) rule; 512 is eight a cluster, where the reference's k-means
+# (initial rows drawn at random) seeds every centre. With the default
+# spill (4x the mean cluster size) a few rows of an overfull cluster move
+# to a far centroid, and that cluster's radius then spans the sphere; so
+# the 512-centre corpus is also built without the spill.
+CLUSTERED_SIGMA = 0.04
+CLUSTERED = ((4096, (4.0,)), (512, (4.0, None)))
+IVF_BATCH = 256
+IVF_NPROBE = 8
+
+
+def clustered_corpus(centres: int, seed: int):
+    rng = np.random.default_rng(seed)
+    mus = rng.normal(size=(centres, BENCH_DIM))
+    mus /= np.linalg.norm(mus, axis=1, keepdims=True)
+    x = mus[rng.integers(0, centres, BENCH_ITEMS)] + CLUSTERED_SIGMA * (
+        rng.normal(size=(BENCH_ITEMS, BENCH_DIM)))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = mus[rng.integers(0, centres, IVF_BATCH)] + CLUSTERED_SIGMA * (
+        rng.normal(size=(IVF_BATCH, BENCH_DIM)))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return x.astype(np.float32), q.astype(np.float32)
+
+
+def phase_ivf_clustered(dev, card: str) -> None:
+    """`IVFIndex` on clustered 2^20 x 64 corpora: the build, B=256
+    certified searches at nprobe 8, every certified row held to dense
+    exact top-k over the served bf16 rows, the probe's ms beside
+    `search_certified("fused")` on the same corpus. The probe launches no
+    kernel, and the fused search here is a yardstick, so no launch of
+    this phase is counted."""
+    certified_somewhere = False
+    for centres, spills in CLUSTERED:
+        t0 = time.perf_counter()
+        x, q = clustered_corpus(centres, SEED + centres)
+        gen_s = time.perf_counter() - t0
+        dense = torch.from_numpy(q).to(dev).bfloat16().float() @ (
+            torch.from_numpy(x).to(dev).bfloat16().float().T)
+        want = torch.topk(dense, BENCH_K).indices.cpu().numpy()
+        index = RetrievalIndex(x, np.arange(BENCH_ITEMS), method="scan",
+                               device=dev)
+        fused_ms = cuda_ms(lambda index=index: index.search_certified(
+            q, top_k=BENCH_K, method="fused"), iters=3)
+        del index
+        for spill in spills:
+            t0 = time.perf_counter()
+            ivf = IVFIndex(x, np.arange(BENCH_ITEMS), nprobe=IVF_NPROBE,
+                           spill_factor=spill, device=dev)
+            build_s = time.perf_counter() - t0
+            scores, ids, exact = ivf.search_certified(q, top_k=BENCH_K)
+            check(scores.dtype == np.float32, "ivf scores are not f32")
+            exact_rows = sum(set(want[row]) == set(ids[row])
+                             for row in range(IVF_BATCH))
+            for row in np.flatnonzero(exact):
+                held_to_dense_top_k(dense[row], ids[row], scores[row],
+                                    BENCH_K, f"clustered ivf row {row}")
+            certified_somewhere |= bool(exact.any())
+            probe_ms = cuda_ms(
+                lambda ivf=ivf: ivf.search_certified(q, top_k=BENCH_K),
+                iters=5)
+            radii = ivf.radii
+            split = ", ".join(f"{k} {v:.2f} s"
+                              for k, v in ivf.build_seconds.items())
+            print(f"ivf clustered corpus: {BENCH_ITEMS} x {BENCH_DIM} "
+                  f"around {centres} seeded centres (sigma "
+                  f"{CLUSTERED_SIGMA} a coordinate, generated in "
+                  f"{gen_s:.2f} s host), spill factor {spill}; build "
+                  f"{build_s:.2f} s ({split}); {ivf.num_clusters} clusters, "
+                  f"bucket {ivf.bucket_size}, fill {ivf.fill:.4f}, radii "
+                  f"p50 / p99 / max {radii.median().item():.4f} / "
+                  f"{radii.quantile(0.99).item():.4f} / "
+                  f"{radii.max().item():.4f}; B={IVF_BATCH}, k={BENCH_K}, "
+                  f"nprobe {IVF_NPROBE}: certified {int(exact.sum())} rows "
+                  f"(share {exact.mean():.4f}), each == dense top-"
+                  f"{BENCH_K}; {exact_rows} of {IVF_BATCH} rows hold the "
+                  f"dense top-k set; the certified probe {probe_ms:.3f} ms "
+                  f"a batch, search_certified('fused') {fused_ms:.3f} ms a "
+                  f"batch on the same corpus [{card}]")
+            del ivf
+        del dense
+    check(certified_somewhere, "no clustered corpus certified a row")
+
+
+# ---------------------------------------------------------------------------
 # phase 9: training
 # ---------------------------------------------------------------------------
 # ML-1M's published size; the synthetic generator caps each user's
@@ -1964,6 +2277,124 @@ def check_card_steps_match_cpu(config, batches, dev,
     return worst
 
 
+# remat against plain steps: the same arithmetic, recomputed; a
+# difference past this is a wrong replay (a lost dropout mask moves a
+# parameter by lr, 1e-4, in the first step)
+REMAT_BOUND = 5e-5
+
+
+def remat_run(config, batches, dev) -> tuple[dict, torch.Tensor]:
+    """3 steps from seed SEED with dropout on: (parameters, the dropout
+    generator's state)."""
+    state = train_mod.TrainState(config, seed=SEED, device=dev)
+    for batch in batches:
+        train_mod.train_step(state, train_mod.batch_to_device(batch, dev))
+    torch.cuda.synchronize()
+    return state.model.state_dict(), state.generator.get_state()
+
+
+def step_peak_bytes(config, batch_np, dev) -> tuple[int, int]:
+    """The second train step's peak of allocated device memory, and that
+    peak less what was allocated before the step."""
+    state = train_mod.TrainState(config, seed=SEED, device=dev)
+    batch = train_mod.batch_to_device(batch_np, dev)
+    train_mod.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    train_mod.train_step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak, peak - before
+
+
+def check_remat(config, batches, dev, card: str, what: str) -> None:
+    """3 steps with `remat=True` == 3 without, dropout on."""
+    check(config.dropout_rate > 0, f"{what}: dropout is off")
+    plain, plain_gen = remat_run(config, batches, dev)
+    remat, remat_gen = remat_run(
+        dataclasses.replace(config, remat=True), batches, dev)
+    worst = max((remat[name].float() - value.float()).abs().max().item()
+                for name, value in plain.items())
+    check(worst <= REMAT_BOUND, f"{what}: remat steps part from plain "
+          f"steps by {worst:.3e}")
+    check(torch.equal(plain_gen, remat_gen),
+          f"{what}: remat left the dropout generator elsewhere")
+    print(f"{what} remat: 3 steps with remat=True (dropout "
+          f"{config.dropout_rate}) == 3 without from one seed, largest "
+          f"parameter difference {worst:.3e} (bound {REMAT_BOUND:.0e}), the "
+          f"dropout generator's state equal [{card}]")
+
+
+def remat_memory(config, big_batch, dev, card: str, what: str) -> None:
+    """A step's peak device memory at `big_batch`'s size with and
+    without remat."""
+    size = len(big_batch["user_tokens"])
+    fusion = config.history_layers if config.user_tower == "history" else 0
+    peaks = {remat_: step_peak_bytes(
+        dataclasses.replace(config, remat=remat_), big_batch, dev)
+        for remat_ in (False, True)}
+    print(f"{what} remat memory: a step at batch {size} with "
+          f"{config.num_hidden_layers} text and {fusion} fusion layers: "
+          f"peak device memory {peaks[False][0] / 2**20:.1f} "
+          f"MiB without remat ({peaks[False][1] / 2**20:.1f} MiB above the "
+          f"step's start), {peaks[True][0] / 2**20:.1f} MiB with "
+          f"({peaks[True][1] / 2**20:.1f} MiB) [{card}]")
+
+
+def check_trace(prof_dir: pathlib.Path, card: str) -> None:
+    """The trace `profile_dir` wrote: steps 10-20 (ten AdamW steps) and
+    their CUDA kernels."""
+    files = sorted(prof_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"profile_dir holds {len(files)} traces")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    # the host's record of each step ("gpu_user_annotation" mirrors it on
+    # the device's timeline)
+    steps = [e for e in events if e.get("cat") == "user_annotation"
+             and str(e.get("name", "")).startswith("Optimizer.step#AdamW")]
+    device = [e for e in events if e.get("cat") == "kernel"]
+    check(len(steps) == 10, f"the trace holds {len(steps)} optimizer steps")
+    check(len(device) > 0, "the trace holds no CUDA kernel")
+    print(f"training profile_dir: one trace ({files[0].stat().st_size / 2**20:.1f}"
+          f" MiB) of train steps 10-20: {len(steps)} AdamW steps, "
+          f"{len(device)} CUDA kernel events [{card}]")
+
+
+def check_predictions(trainer, path: pathlib.Path, card: str) -> None:
+    """`predictions.npz` of the predict CLI: every predict user, each row
+    == dense top-k of the lane-pair survivors with the user's train
+    history excluded, within one key quantum."""
+    with np.load(path) as saved:
+        preds = {name: saved[name] for name in saved.files}
+    data = trainer.data
+    check(len(preds["user_id"]) == int(data.user_subsets["is_predict"].sum())
+          and preds["rec_scores"].dtype == np.float32,
+          "predictions.npz does not hold every predict user")
+    index = trainer.index
+    upos_of = {int(u): p for p, u in enumerate(data.user_ids)}
+    tight = quantum_scaled(index_quantum_bits(index)) + 1e-6
+    ct = index._scan_setup()[2]
+    k = preds["rec_item_ids"].shape[1]
+    corpus = index.corpus.float()
+    for start in range(0, len(preds["user_id"]), 256):
+        users = preds["user_id"][start:start + 256]
+        upos = np.asarray([upos_of[int(u)] for u in users])
+        vecs = trainer.eval_user_embeddings(upos)
+        dense = scaled_queries(index, vecs).float() @ corpus.T
+        excl = [data._train_items_by_user.get(int(u), []) for u in upos]
+        got_pos = torch.tensor(
+            [[index._id_to_pos[int(i)] for i in row]
+             for row in preds["rec_item_ids"][start:start + 256]],
+            device=dense.device)
+        check_exclusion_search(dense, ct, excl, got_pos, k, tight,
+                               "predict")
+    print(f"training predict: `cli predict` wrote {path.name} for all "
+          f"{len(preds['user_id'])} predict users of the {len(index)}-item "
+          f"catalogue (top-{k}, train histories excluded), every row == "
+          f"dense top-{k} of the lane-pair survivors within one key quantum "
+          f"({tight:.2e} scaled) [{card}]")
+
+
 def phase_training(dev, card: str, root: pathlib.Path) -> dict:
     """(a) generate and prepare a corpus at ML-1M's size under `root`,
     train the reference config through the CLI with two validations on
@@ -1996,7 +2427,8 @@ def phase_training(dev, card: str, root: pathlib.Path) -> dict:
         "trainer": {"max_steps": TRAIN_STEPS,
                     "val_check_interval": val_interval,
                     "log_every_steps": 25, "log_dir": str(root / "runs"),
-                    "run_name": "ml1m", "seed": SEED},
+                    "run_name": "ml1m", "seed": SEED,
+                    "profile_dir": str(root / "prof")},
     })
     artifact = root / "artifact"
     kernels.reset_launch_counts()
@@ -2041,6 +2473,7 @@ def phase_training(dev, card: str, root: pathlib.Path) -> dict:
                       for k, v in retrieval.items())
           + f" [{card}]")
     print(f"training (a) kernel launches: {launches_a}")
+    check_trace(root / "prof", card)
     dense_ms, _, _ = eval_search_ms(trainer)
     print(f"training eval search, dense index of {trainer.data.num_items} "
           f"items: {dense_ms:.3f} ms a batch of "
@@ -2056,10 +2489,16 @@ def phase_training(dev, card: str, root: pathlib.Path) -> dict:
     big = RecDataModule(dataclasses.replace(trainer.data.config,
                                             batch_size=4096))
     big.setup()
+    big_batch = next(big.train_batches(0))
+    check_remat(config, batches, dev, card, "training")
+    # one layer (the reference config) and four: remat keeps one layer's
+    # activations at a time, so only a deeper tower can show a saving
+    for layers in (1, 4):
+        remat_memory(dataclasses.replace(config, num_hidden_layers=layers),
+                     big_batch, dev, card, "training")
     timing = {
         32: train_step_ms(config, batches[0], dev, steps=50),
-        4096: train_step_ms(config, next(big.train_batches(0)), dev,
-                            steps=10),
+        4096: train_step_ms(config, big_batch, dev, steps=10),
     }
     for size, t in timing.items():
         idle = ("not measured (the profiler recorded no device time)"
@@ -2128,6 +2567,22 @@ def phase_training(dev, card: str, root: pathlib.Path) -> dict:
           f"{scan_ms:.3f} ms a batch of {len(got_ids)} users, top-"
           f"{top_k} with the train histories excluded [{card}]")
 
+    # (b) predict: the full predict cohort of the 2^17-item catalogue
+    # through the CLI (a seeded init: the CLI restores no checkpoint)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred_trainer, _ = cli.run(["predict", "--config", str(config_b),
+                               "--device", str(dev)])
+    predict_s = time.perf_counter() - t0
+    predict_launches = kernels.launch_counts()
+    check(predict_launches["packed_scan"] > 0,
+          "predict never launched packed_scan")
+    print(f"training predict: `cli predict` in {predict_s:.2f} s host wall "
+          f"(setup, the catalogue encoded, the cohort searched); kernel "
+          f"launches {predict_launches}")
+    check_predictions(pred_trainer,
+                      pred_trainer.logger.log_dir / "predictions.npz", card)
+
     # (c) serve what (a) trained
     engine = RecommenderEngine(artifact, device=dev)
     n = trainer.data.num_items
@@ -2145,6 +2600,7 @@ def phase_training(dev, card: str, root: pathlib.Path) -> dict:
           f"RecommenderEngine on the card; 4 item queries with the item "
           f"excluded == the trainer's own index search [{card}]")
     return {"launches": {name: launches_a[name] + launches[name]
+                         + predict_launches[name]
                          for name in kernels.LAUNCHES},
             "timing": timing}
 
@@ -2319,10 +2775,12 @@ def phase_history(dev, card: str, root: pathlib.Path) -> dict:
     big = RecDataModule(dataclasses.replace(trainer.data.config,
                                             batch_size=1024))
     big.setup()
+    big_batch = next(big.train_batches(0))
+    check_remat(config, batches, dev, card, "history")
+    remat_memory(config, big_batch, dev, card, "history")
     timing = {
         32: train_step_ms(config, batches[0], dev, steps=50),
-        1024: train_step_ms(config, next(big.train_batches(0)), dev,
-                            steps=10),
+        1024: train_step_ms(config, big_batch, dev, steps=10),
     }
     for size, t in timing.items():
         idle = ("not measured (the profiler recorded no device time)"
@@ -2587,6 +3045,7 @@ def main() -> int:
     timings = phase_timings(guaranteed, select, certified, card)
     phase_profile(guaranteed, card, "fused")
     phase_profile(guaranteed, card, "f32")
+    phase_ivf_clustered(dev, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         training = phase_training(dev, card, pathlib.Path(tmp))
         history = phase_history(dev, card, pathlib.Path(tmp))

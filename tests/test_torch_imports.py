@@ -4,7 +4,8 @@ The machine with the card has torch, numpy and scipy but no JAX, flax,
 optax, orbax, msgpack, pandas, pyarrow, pydantic or PyYAML. A
 `sys.meta_path` finder refuses those here, in a fresh interpreter, while
 every module of the port and `chip_smoke.py` is imported (the native
-tokenizer and BM25 bindings and the serve CLI among them), the two file
+tokenizer and BM25 bindings, the serve CLI, the IVF index, the portable
+encoder and the profiler helpers among them), the two file
 formats the history tower adds (flax msgpack, the user store) are
 written and read, and the native tokenizer and BM25 build and answer.
 """
@@ -33,7 +34,10 @@ names = [info.name for info in pkgutil.walk_packages(
     xfmr_rec_torch.__path__, prefix="xfmr_rec_torch.")]
 required = {{"xfmr_rec_torch.native.tokenizer_native",
             "xfmr_rec_torch.native.bm25_native",
-            "xfmr_rec_torch.serving.prepare"}}
+            "xfmr_rec_torch.serving.prepare",
+            "xfmr_rec_torch.index.ivf",
+            "xfmr_rec_torch.serving.portable",
+            "xfmr_rec_torch.utils.profiling"}}
 assert required <= set(names), required - set(names)
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)

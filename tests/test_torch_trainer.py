@@ -277,15 +277,16 @@ def test_two_tower_and_cf_configs_accepted(tmp_path, model):
 @pytest.mark.parametrize(
     "model,trainer,match",
     [
-        (dict(remat=True), {}, "remat"),
-        ({}, dict(mesh=True), "multi-device"),
-        ({}, dict(model_parallel=2), "multi-device"),
-        ({}, dict(shard_vocab=True), "multi-device"),
-        ({}, dict(profile_dir="prof"), "profile_dir"),
+        pytest.param({}, dict(mesh=True), "multi-device",
+                     id="model1-trainer1-multi-device"),
+        pytest.param({}, dict(model_parallel=2), "multi-device",
+                     id="model2-trainer2-multi-device"),
+        pytest.param({}, dict(shard_vocab=True), "multi-device",
+                     id="model3-trainer3-multi-device"),
     ],
 )
 def test_refused_configs_raise(tmp_path, model, trainer, match):
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         PortTrainer(
             PortTrainConfig(**model),
             data=PortDataConfig(data_dir=str(tmp_path)),
@@ -294,9 +295,26 @@ def test_refused_configs_raise(tmp_path, model, trainer, match):
         )
 
 
+@pytest.mark.parametrize(
+    "model,trainer",
+    [(dict(remat=True), {}), ({}, dict(profile_dir="prof"))],
+    ids=["remat", "profile_dir"],
+)
+def test_remat_and_profile_dir_accepted(tmp_path, model, trainer):
+    """Both build; `remat` is held in test_torch_remat.py,
+    `profile_dir` in test_torch_profiling.py."""
+    built = PortTrainer(
+        PortTrainConfig(**model),
+        data=PortDataConfig(data_dir=str(tmp_path)),
+        trainer_config=PortTrainerConfig(log_dir=str(tmp_path), **trainer),
+        device=CPU,
+    )
+    assert built.config.remat == model.get("remat", False)
+
+
 def test_refused_data_and_predict(tmp_path):
-    """History fields in the data section now build; predict (parquet
-    output) and unknown options are refused."""
+    """History fields in the data section build; unknown options are
+    refused (`predict` is held in test_torch_predict.py)."""
     trainer = port_cli.build_trainer(
         {**port_cli.default_config(),
          "data": dataclasses.asdict(PortDataConfig(max_history=8)),
@@ -305,7 +323,5 @@ def test_refused_data_and_predict(tmp_path):
         device=CPU,
     )
     assert trainer.data.config.max_history == 8
-    with pytest.raises(SystemExit, match="parquet"):
-        port_cli.run(["predict", "--device", CPU])
     with pytest.raises(SystemExit, match="unknown option"):
         port_cli.run(["fit", "--model.no_such_field", "1"])

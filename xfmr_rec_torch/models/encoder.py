@@ -18,6 +18,13 @@ that restores the generator's state replays them; they never match
 JAX's. With no generator the forward is deterministic. `init_encoder`
 draws fresh parameters with the flax initializers of the reference.
 
+`remat=True` (the reference's `nn.remat` of each layer) runs each
+transformer layer under `torch.utils.checkpoint` (`run_layer`): its
+activations are dropped after the forward and recomputed in the
+backward. The recompute draws its dropout masks again from the same
+generator state, so they equal the forward's, and the generator is left
+where the forward left it.
+
 The attention covers at most `max_length` (64) tokens over a few heads,
 computed outside any kernel in the JAX package too, so here it is plain
 einsum + softmax.
@@ -29,6 +36,7 @@ import dataclasses
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 # Multiplicative-hash constants (distinct odd 32-bit) for in-module
@@ -305,6 +313,53 @@ class TransformerLayer(nn.Module):
         return self.ffn_norm(hidden + ffn, dtype)
 
 
+def run_layer(
+    layer: nn.Module,
+    hidden: torch.Tensor,
+    mask_bias: torch.Tensor,
+    dtype: torch.dtype,
+    generator: torch.Generator | None,
+    *,
+    remat: bool,
+) -> torch.Tensor:
+    """`layer(hidden, mask_bias, dtype, generator)`; with `remat`, its
+    activations are recomputed in the backward (`torch.utils.checkpoint`,
+    non-reentrant).
+
+    `checkpoint(preserve_rng_state=True)` saves only the default CPU and
+    CUDA generators, and dropout draws from the explicit `generator`. So
+    its state is saved before the forward, set back before the recompute
+    (the masks repeat), and the state it had then is restored after the
+    recompute (later draws are those of a run without remat). Without
+    gradients there is nothing to recompute and the layer runs as is.
+    """
+    if not remat or not torch.is_grad_enabled():
+        return layer(hidden, mask_bias, dtype, generator)
+    if generator is None:
+        return torch.utils.checkpoint.checkpoint(
+            layer, hidden, mask_bias, dtype, None,
+            use_reentrant=False, preserve_rng_state=False,
+        )
+    before = generator.get_state()
+    forward_done = False
+
+    def run(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+        nonlocal forward_done
+        if not forward_done:
+            forward_done = True
+            return layer(h, m, dtype, generator)
+        after = generator.get_state()
+        generator.set_state(before)
+        try:
+            return layer(h, m, dtype, generator)
+        finally:
+            generator.set_state(after)
+
+    return torch.utils.checkpoint.checkpoint(
+        run, hidden, mask_bias, use_reentrant=False, preserve_rng_state=False
+    )
+
+
 class TextEncoder(nn.Module):
     """Token ids (batch, seq) -> unit-norm embeddings (batch, hidden) f32."""
 
@@ -342,7 +397,9 @@ class TextEncoder(nn.Module):
         hidden = dropout(hidden, cfg.dropout_rate, generator)
         mask_bias = torch.where(mask, 0.0, -1e9).to(dtype)[:, None, None, :]
         for layer in self.layers:
-            hidden = layer(hidden, mask_bias, dtype, generator)
+            hidden = run_layer(
+                layer, hidden, mask_bias, dtype, generator, remat=cfg.remat
+            )
         pooled = self._pool(hidden, mask, dtype).float()
         if cfg.normalize:
             pooled = l2_normalize(pooled)

@@ -13,7 +13,9 @@ Port of `xfmr_rec_tpu/models/history.py`:
   rn == 0 gives exactly the zero vector.
 - `HistoryFusion`: slot (recency) and rating embeddings, LayerNorm,
   dropout, `history_layers` post-LN transformer layers with the -1e9
-  mask bias, masked mean pooling and the gradient-safe L2 normalize.
+  mask bias (recomputed in the backward under `remat`, as the text
+  layers are: `models/encoder.py` `run_layer`), masked mean pooling and
+  the gradient-safe L2 normalize.
 - `TwoTowerModel`: the shared `TextEncoder` plus the channels. The item
   tower adds an ID embedding before the normalize and a popularity-bias
   column after it (user vectors carry a constant 1 beside it); the CF
@@ -43,6 +45,7 @@ from xfmr_rec_torch.models.encoder import (
     init_params_,
     l2_normalize,
     needs_two_tower,
+    run_layer,
     uses_item_ids,
 )
 
@@ -181,7 +184,9 @@ class HistoryFusion(nn.Module):
         seq = dropout(seq, cfg.dropout_rate, generator)
         mask_bias = torch.where(mask, 0.0, -1e9).to(dtype)[:, None, None, :]
         for layer in self.layers:
-            seq = layer(seq, mask_bias, dtype, generator)
+            seq = run_layer(
+                layer, seq, mask_bias, dtype, generator, remat=cfg.remat
+            )
         weights = mask[..., None].to(seq.dtype)
         pooled = (seq * weights).sum(dim=1) / torch.clamp(
             weights.sum(dim=1), min=1e-9

@@ -6,7 +6,10 @@ enqueue into a `MicroBatcher`; a collector thread drains up to
 serves them with ONE batched tokenize -> encode -> exclusion-search
 dispatch. Batches are padded to powers of two (padding rows repeat the
 first request's query); per-request top_k values are served from one
-search at max(top_k) and sliced.
+search at max(top_k) and sliced. The search goes through the engine's
+index kind (`RecommenderEngine.search_vectors`: exact, IVF, or the
+certified IVF probe); the reference's batcher always searches the exact
+index, so its IVF engine answers a batched request exhaustively.
 """
 
 from __future__ import annotations
@@ -138,9 +141,7 @@ class MicroBatcher:
         excl = [r.exclude_item_ids for r in batch]
         excl += [[] for _ in range(width - len(batch))]
         embeds = engine.embed(texts)
-        scores, item_ids = engine.index.search(
-            embeds, top_k=k_max, exclude_ids=excl
-        )
+        scores, item_ids = engine.search_vectors(embeds, excl, k_max)
         for row, request in enumerate(batch):
             request.result = engine._candidates(
                 scores[row][: request.top_k], item_ids[row][: request.top_k]

@@ -1,8 +1,8 @@
 """Artifact-backed recommendation engine on the card.
 
-Port of `xfmr_rec_tpu/serving/engine.py` with `index_kind="exact"`. It
-loads the artifact `Trainer.save` (either package's) writes, using only
-files that need no JAX, flax or pandas to read: `processors.json`; the
+Port of `xfmr_rec_tpu/serving/engine.py`. It loads the artifact
+`Trainer.save` (either package's) writes, using only files that need no
+JAX, flax or pandas to read: `processors.json`; the
 text encoder from `portable.json` + `encoder.npz`, or for a two-tower
 model (history user tower, item-identity channels) the whole tree from
 `encoder.msgpack` (`utils/flax_msgpack.py`); `vocab.json` when the
@@ -24,12 +24,23 @@ lock and each reads one consistent index. `search_items_text` and
 `search_users_text` are BM25 keyword search over the item metadata and
 the user store's profile text.
 
-Not ported yet (ROADMAP.md, Queue 1): IVF and sharded indexes.
+`index_kind="ivf"` builds an `IVFIndex` (`index/ivf.py`) over the
+index's corpus at load, or loads the one cached under `ivf/` when its
+`fingerprint.json` holds the sha256 of `index/corpus.npz`, and measures
+the probe's recall@10 (a warning below `ivf_min_recall`, an error with
+`ivf_enforce_recall`). Item search then probes `nprobe` clusters a
+query; with `ivf_certified` a row whose certificate fails is answered by
+the exact index (the packed scan, kernel 1, from 65,536 items), so every
+answer is exact. The IVF snapshots the corpus, so `add_items` is refused
+under it. Not ported yet (ROADMAP.md, Queue 1 item 11): the sharded
+index.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import logging
 import pathlib
 import threading
 
@@ -37,6 +48,7 @@ import numpy as np
 import torch
 
 from xfmr_rec_torch.device import resolve_device
+from xfmr_rec_torch.index.ivf import IVFIndex
 from xfmr_rec_torch.index.mips import BM25Index, RetrievalIndex
 from xfmr_rec_torch.models.cf import CFChannel
 from xfmr_rec_torch.models.convert import (
@@ -71,7 +83,9 @@ from xfmr_rec_torch.serving.schemas import (
 )
 from xfmr_rec_torch.serving.users import UserStore
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1)"
+logger = logging.getLogger(__name__)
+
+_INDEX_KINDS = ("exact", "ivf", "sharded")
 
 
 class RecommenderEngine:
@@ -84,11 +98,21 @@ class RecommenderEngine:
         *,
         warmup: bool = True,
         index_kind: str = "exact",
+        nprobe: int = 8,
+        ivf_min_recall: float = 0.5,
+        ivf_enforce_recall: bool = False,
+        ivf_certified: bool = False,
         device: str | torch.device = "cuda",
     ) -> None:
         self.device = resolve_device(device)
-        if index_kind != "exact":
-            msg = f"index_kind={index_kind!r} is {_NOT_PORTED}"
+        if index_kind not in _INDEX_KINDS:
+            msg = f"unknown index_kind {index_kind!r}"
+            raise ValueError(msg)
+        if index_kind == "sharded":
+            msg = (
+                "index_kind='sharded' is not ported yet (ROADMAP.md, "
+                "Queue 1 item 11)"
+            )
             raise NotImplementedError(msg)
         self.index_kind = index_kind
         path = pathlib.Path(artifact_dir)
@@ -119,6 +143,28 @@ class RecommenderEngine:
             _, _, state = load_portable(path)
             self.encoder = build_encoder(self.model_config, state, self.device)
         self.index = RetrievalIndex.load(path / INDEX_DIR, device=self.device)
+        self.ivf: IVFIndex | None = None
+        self._ivf_certified = bool(ivf_certified)
+        # rows the certified probe answered / handed to the exact index
+        self.ivf_rows = {"certified": 0, "fallback": 0}
+        self._ivf_rows_lock = threading.Lock()
+        if index_kind == "ivf":
+            self.ivf = self._load_ivf(path, nprobe)
+            recall = self.ivf.recall_probe(top_k=10, nprobe=nprobe)
+            self.ivf_probe_recall = recall
+            if recall < ivf_min_recall:
+                msg = (
+                    f"IVF probe recall@10 = {recall:.2f} at nprobe={nprobe} "
+                    f"(threshold {ivf_min_recall}): this corpus does not "
+                    "cluster well; raise nprobe or use index_kind='exact'"
+                )
+                if ivf_enforce_recall:
+                    raise RuntimeError(msg)
+                logger.warning(msg)
+            else:
+                logger.info(
+                    "IVF probe recall@10 = %.3f at nprobe=%d", recall, nprobe
+                )
         self.cf = None
         if self.model_config.cf_rank > 0 and (path / CF_NPZ).exists():
             self.cf = CFChannel.load(path / CF_NPZ)
@@ -149,6 +195,45 @@ class RecommenderEngine:
             # first search builds the kernels and pads the corpus, so
             # the first live request does not pay for it
             self.search_items(Query(text="warmup"), top_k=TOP_K)
+
+    def _load_ivf(self, path: pathlib.Path, nprobe: int) -> IVFIndex:
+        """The IVF cached under `ivf/` when it was built from this
+        artifact's `index/corpus.npz` (by sha256), else a new build from
+        the index's stored corpus in f32 (dequantized for int8), cached
+        there; a read-only artifact rebuilds on every load."""
+        ivf_dir = path / "ivf"
+        fp_file = ivf_dir / "fingerprint.json"
+        corpus_fp = hashlib.sha256(
+            (path / INDEX_DIR / "corpus.npz").read_bytes()
+        ).hexdigest()
+        cached_fp = None
+        if fp_file.exists():
+            cached_fp = json.loads(fp_file.read_text()).get("corpus_sha256")
+        self.ivf_cache_hit = (
+            (ivf_dir / "ivf.npz").exists() and cached_fp == corpus_fp
+        )
+        if self.ivf_cache_hit:
+            ivf = IVFIndex.load(ivf_dir, device=self.device)
+            ivf.nprobe = nprobe
+            return ivf
+        if (ivf_dir / "ivf.npz").exists():
+            logger.warning(
+                "cached IVF was built from a different corpus (artifact "
+                "re-exported?); rebuilding"
+            )
+        corpus = self.index.corpus.float()
+        if self.index._scales is not None:
+            corpus = corpus * self.index._scales[0][:, None]
+        ivf = IVFIndex(
+            corpus.cpu().numpy(), self.index.ids, nprobe=nprobe,
+            device=self.device,
+        )
+        try:
+            ivf.save(ivf_dir)
+            fp_file.write_text(json.dumps({"corpus_sha256": corpus_fp}))
+        except OSError:
+            logger.warning("could not cache IVF index to %s", ivf_dir)
+        return ivf
 
     # -- embedder --------------------------------------------------------
     def embed(self, texts: list[str]) -> np.ndarray:
@@ -223,12 +308,50 @@ class RecommenderEngine:
         embedding = self._pad_query_vec(
             np.asarray(query.embedding, dtype=np.float32)
         )
-        scores, item_ids = self.index.search(
-            embedding,
-            top_k=top_k,
-            exclude_ids=[list(exclude_item_ids or [])],
+        scores, item_ids = self.search_vectors(
+            embedding[None], [list(exclude_item_ids or [])], top_k
         )
         return self._candidates(scores[0], item_ids[0])
+
+    def search_vectors(
+        self, queries: np.ndarray, exclude_ids: list[list[int]], top_k: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """(scores, item_ids) of index-width query rows through the
+        engine's index kind: the exact index, the IVF probe, or the
+        certified probe with the exact index answering the rows whose
+        certificate fails."""
+        if self.ivf is None:
+            return self.index.search(
+                queries, top_k=top_k, exclude_ids=exclude_ids
+            )
+        if not self._ivf_certified:
+            return self.ivf.search(
+                queries, top_k=top_k, exclude_ids=exclude_ids
+            )
+        scores, item_ids, exact = self.ivf.search_certified(
+            queries, top_k=top_k, exclude_ids=exclude_ids
+        )
+        fallback = np.flatnonzero(~exact)
+        with self._ivf_rows_lock:
+            self.ivf_rows["certified"] += len(exact) - len(fallback)
+            self.ivf_rows["fallback"] += len(fallback)
+        if not len(fallback):
+            return scores, item_ids
+        if scores.shape[1] < top_k:
+            # a pool smaller than top_k is never certified: widen to k
+            pad = top_k - scores.shape[1]
+            scores = np.pad(scores, ((0, 0), (0, pad)),
+                            constant_values=-np.inf)
+            item_ids = np.pad(item_ids, ((0, 0), (0, pad)),
+                              constant_values=-1)
+        exact_scores, exact_ids = self.index.search(
+            queries[fallback],
+            top_k=top_k,
+            exclude_ids=[exclude_ids[row] for row in fallback],
+        )
+        scores[fallback] = exact_scores
+        item_ids[fallback] = exact_ids
+        return scores, item_ids
 
     def get_item(self, item_id: int) -> ItemQuery:
         row = self.index.get_id(item_id)
@@ -276,7 +399,16 @@ class RecommenderEngine:
         `_hist_corpus` afterwards, and both only grow. Ids must be new;
         concurrent calls serialize. The live engine offers no deletion:
         compaction would move positions under a user query in flight.
+        Refused under `index_kind="ivf"`: the IVF snapshots the corpus at
+        load and picks new items up from a re-exported artifact.
         """
+        if self.index_kind != "exact":
+            msg = (
+                f"live catalog updates need index_kind='exact' "
+                f"(got {self.index_kind!r}: ivf/sharded snapshot the "
+                "corpus at load and rebuild on the next boot)"
+            )
+            raise RuntimeError(msg)
         if not items:
             return 0
         new_ids = [int(item.movie_id) for item in items]

@@ -10,7 +10,7 @@ The arguments are parsed by `main` itself, so the installed
 `xfmr-rec-torch-serve` command reads them.
 
     xfmr-rec-torch-serve --artifact_dir artifacts/run --serve \\
-        [--allow-catalog-mutation] [--port 8000]
+        [--allow-catalog-mutation] [--port 8000] [--index_kind ivf --nprobe 8]
     python -m xfmr_rec_torch.serving.prepare --artifact_dir art --device cpu
 """
 
@@ -31,11 +31,8 @@ from xfmr_rec_torch.training.trainer import Trainer, TrainerConfig
 
 logger = logging.getLogger(__name__)
 
-# index kinds of the reference that the port does not serve yet
-_NOT_PORTED_KINDS = {
-    "ivf": "ROADMAP.md, Queue 1 item 10",
-    "sharded": "ROADMAP.md, Queue 1 item 11",
-}
+# the reference's index kinds; "sharded" is not ported yet
+_SHARDED_NOT_PORTED = "ROADMAP.md, Queue 1 item 11"
 
 
 def prepare_artifact(
@@ -131,9 +128,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument(
         "--index_kind", default="exact",
-        help="item search path: only 'exact' (one card) is ported; "
-        + ", ".join(f"{k!r} ({v})" for k, v in _NOT_PORTED_KINDS.items()),
+        help="item search path: 'exact' (exhaustive) or 'ivf' (the IVF "
+        f"probe); 'sharded' is not ported yet ({_SHARDED_NOT_PORTED})",
     )
+    parser.add_argument("--nprobe", type=int, default=8,
+                        help="(ivf) clusters probed a query")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda)")
     parser.add_argument(
@@ -142,13 +141,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         "the port could otherwise grow the catalog)",
     )
     args = parser.parse_args(argv)
-    if args.index_kind != "exact":
-        where = _NOT_PORTED_KINDS.get(args.index_kind)
+    if args.index_kind == "sharded":
         parser.error(
-            f"--index_kind {args.index_kind!r} is not ported yet ({where})"
-            if where
-            else f"unknown --index_kind {args.index_kind!r}"
+            f"--index_kind 'sharded' is not ported yet ({_SHARDED_NOT_PORTED})"
         )
+    if args.index_kind not in ("exact", "ivf"):
+        parser.error(f"unknown --index_kind {args.index_kind!r}")
     return args
 
 
@@ -158,7 +156,10 @@ def main(argv: list[str] | None = None) -> None:
     path = pathlib.Path(args.artifact_dir)
     if not (path / PROCESSORS_JSON).exists():
         prepare_artifact(path, device=args.device)
-    engine = RecommenderEngine(path, device=args.device)
+    engine = RecommenderEngine(
+        path, index_kind=args.index_kind, nprobe=args.nprobe,
+        device=args.device,
+    )
     service = RecService(
         engine, allow_catalog_mutation=args.allow_catalog_mutation
     )

@@ -1,13 +1,14 @@
-"""Training CLI: fit / validate / test with layered config.
+"""Training CLI: fit / validate / test / predict with layered config.
 
 Port of `xfmr_rec_tpu/training/cli.py`: subcommands, a config file,
 dotted `--model.x / --data.y / --trainer.z` overrides coerced by each
 field's declared type, and `--print_config`. The config file is JSON
 (the reference's YAML loader reads JSON too, so one file drives both
 CLIs) and `--print_config` prints JSON. `--device` picks the torch
-device (default `cuda`). `predict` (the reference writes its
-predictions as parquet) is not ported yet (ROADMAP.md, Queue 1) and
-exits with an error.
+device (default `cuda`). `predict` runs the full predict cohort
+(`Trainer.predict`) into `--output` (default `<log dir>/predictions.npz`;
+the reference writes `predictions.parquet`); the reference's one-user
+`--user_id` form is not ported.
 
 Examples:
     python -m xfmr_rec_torch.training.cli fit --print_config
@@ -16,6 +17,7 @@ Examples:
         --model.learning_rate 0.001 --data.batch_size 64 \\
         --trainer.max_epochs 2 --save_artifact artifacts/run
     python -m xfmr_rec_torch.training.cli test --ckpt runs/<run>/ckpt/best
+    python -m xfmr_rec_torch.training.cli predict --ckpt runs/<run>/ckpt/best
 """
 
 from __future__ import annotations
@@ -153,6 +155,11 @@ def run(
         "--save_artifact", help="(fit) write serving artifact here after fit"
     )
     parser.add_argument(
+        "--output",
+        help="(predict) .npz path for the cohort's predictions "
+        "(default <run log dir>/predictions.npz)",
+    )
+    parser.add_argument(
         "--device", default="cuda", help="torch device (default cuda)"
     )
     args, rest = parser.parse_known_args(argv)
@@ -169,13 +176,6 @@ def run(
         json.dump(config, sys.stdout, indent=2)
         sys.stdout.write("\n")
         return None, None
-    if args.subcommand == "predict":
-        msg = (
-            "predict writes parquet predictions in the reference and needs "
-            "a parquet-free output, not ported yet (ROADMAP.md, Queue 1)"
-        )
-        raise SystemExit(msg)
-
     trainer = build_trainer(config, args.device)
     if args.ckpt:
         trainer.restore_checkpoint(args.ckpt)
@@ -189,9 +189,18 @@ def run(
     elif args.subcommand == "validate":
         metrics = trainer.validate()
         logger.info("validate: %s", metrics)
-    else:
+    elif args.subcommand == "test":
         metrics = trainer.test()
         logger.info("test: %s", metrics)
+    else:
+        output = args.output or str(
+            trainer.logger.log_dir / "predictions.npz"
+        )
+        predictions = trainer.predict(output)
+        logger.info(
+            "predict: %d users -> %s", len(predictions["user_id"]), output
+        )
+        metrics = None
     return trainer, metrics
 
 

@@ -25,9 +25,9 @@ Port of `xfmr_rec_tpu/training/module.py`, in plain PyTorch with autograd
 
 `dropout_rng_impl` is accepted for config compatibility and ignored:
 dropout masks come from the state's `torch.Generator` and never match
-JAX's. `remat=True` is refused: `torch.utils.checkpoint` restores the
-global RNG, not an explicit generator, so a replayed forward of the text
-or the fusion layers would draw other masks.
+JAX's. `remat=True` recomputes the text and fusion layers in the
+backward (`models/encoder.py` `run_layer`), with the generator's state
+set back for the recompute, so a remat step equals a plain one.
 """
 
 from __future__ import annotations
@@ -134,18 +134,6 @@ def learning_rate_at(config: TrainConfig, count: int) -> float:
     return lr * ((1.0 - alpha) * cosine + alpha)
 
 
-def check_supported(config: TrainConfig) -> None:
-    """Refuse what the port does not train (yet): `remat`."""
-    if config.remat:
-        msg = (
-            "remat=True is not supported by the port: "
-            "torch.utils.checkpoint restores the global RNG, not the "
-            "explicit dropout generator, so the replayed masks of the text "
-            "and fusion layers would differ (ROADMAP.md, Queue 1 item 6)"
-        )
-        raise NotImplementedError(msg)
-
-
 class TrainState:
     """The model (a `TextEncoder`, or a `TwoTowerModel` for two-tower
     configs), its AdamW state, the update count and the dropout generator.
@@ -163,7 +151,6 @@ class TrainState:
         seed: int = 0,
         device: str | torch.device = "cuda",
     ) -> None:
-        check_supported(config)
         if config.lr_schedule == "cosine":
             total = config.total_steps or max(config.warmup_steps + 1, 1000)
             if total - config.warmup_steps <= 0:

@@ -21,15 +21,23 @@ Port of `xfmr_rec_tpu/training/trainer.py` on one device:
   format), `index/`, `vocab.json` for the vocab tokenizer, `cf.npz` with
   the CF channel, the user store `users.npz` (in place of the
   reference's `users.parquet`; `serving/users.py`), and `encoder.npz` +
-  `portable.json` with the text encoder alone.
+  `portable.json` with the text encoder alone;
+- `profile_dir` traces train steps 10-20 with `torch.profiler`
+  (`utils/profiling.py` `device_trace`), as the reference traces them
+  with `jax.profiler`;
+- `predict` runs every predict user through the eval search with the
+  user's train history excluded and writes `predictions.npz` (in place of
+  the reference's `predictions.parquet`: the card's machine has neither
+  pandas nor pyarrow).
 
-Refused with an error (not ported yet, ROADMAP.md Queue 1): `remat`
-(`training/module.py` `check_supported`), multi-device training
-(`mesh=True`, `model_parallel > 1`, `shard_vocab`), and `profile_dir`.
+Refused with an error (not ported yet, ROADMAP.md Queue 1 item 11):
+multi-device training (`mesh=True`, `model_parallel > 1`,
+`shard_vocab`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -59,10 +67,13 @@ from xfmr_rec_torch.training import module as train_mod
 from xfmr_rec_torch.training.metrics import retrieval_metrics
 from xfmr_rec_torch.training.module import TrainConfig, TrainState
 from xfmr_rec_torch.utils.logging import MetricsLogger
+from xfmr_rec_torch.utils.profiling import device_trace
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1)"
+_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1 item 11)"
+# train steps traced under `profile_dir`: [PROFILE_STEPS[0], [1])
+PROFILE_STEPS = (10, 20)
 
 
 @dataclasses.dataclass
@@ -102,8 +113,6 @@ def _refusals(tc: TrainerConfig) -> list[str]:
         refused.append(
             "multi-device training (mesh, model_parallel, shard_vocab)"
         )
-    if tc.profile_dir:
-        refused.append("profile_dir")
     return refused
 
 
@@ -118,7 +127,6 @@ class Trainer:
     ) -> None:
         self.config = config or TrainConfig()
         self.trainer_config = trainer_config or TrainerConfig()
-        train_mod.check_supported(self.config)
         refused = _refusals(self.trainer_config)
         if refused:
             msg = f"{', '.join(refused)}: {_NOT_PORTED}"
@@ -253,31 +261,46 @@ class Trainer:
         last_val: dict[str, float] = {}
         stop = False
         fit_start = time.time()
-        for epoch in range(tc.max_epochs):
-            if stop:
-                break
-            for batch_idx, batch in enumerate(self.data.train_batches(epoch)):
-                if batch_idx >= num_batches:
+        # holds the profiler while steps PROFILE_STEPS are traced
+        trace = contextlib.ExitStack()
+        with trace:
+            for epoch in range(tc.max_epochs):
+                if stop:
                     break
-                metrics = self.train_step(batch)
-                if self.global_step % tc.log_every_steps == 0:
-                    self.logger.log_metrics(metrics, self.global_step)
-                if tc.max_steps and self.global_step >= tc.max_steps:
-                    stop = True
-                    break
-                if tc.max_time_s and time.time() - fit_start > tc.max_time_s:
-                    logger.info("max_time_s reached; stopping")
-                    stop = True
-                    break
-                if (batch_idx + 1) % val_every == 0:
+                for batch_idx, batch in enumerate(
+                    self.data.train_batches(epoch)
+                ):
+                    if batch_idx >= num_batches:
+                        break
+                    if (
+                        tc.profile_dir
+                        and self.global_step == PROFILE_STEPS[0]
+                    ):
+                        trace.enter_context(device_trace(tc.profile_dir))
+                    metrics = self.train_step(batch)
+                    if self.global_step == PROFILE_STEPS[1]:
+                        trace.close()
+                    if self.global_step % tc.log_every_steps == 0:
+                        self.logger.log_metrics(metrics, self.global_step)
+                    if tc.max_steps and self.global_step >= tc.max_steps:
+                        stop = True
+                        break
+                    if (
+                        tc.max_time_s
+                        and time.time() - fit_start > tc.max_time_s
+                    ):
+                        logger.info("max_time_s reached; stopping")
+                        stop = True
+                        break
+                    if (batch_idx + 1) % val_every == 0:
+                        last_val = self.validate()
+                        if self._early_stop_check(last_val):
+                            stop = True
+                            break
+                if not stop:
                     last_val = self.validate()
                     if self._early_stop_check(last_val):
                         stop = True
-                        break
-            if not stop:
-                last_val = self.validate()
-                if self._early_stop_check(last_val):
-                    stop = True
         if not last_val:  # e.g. max_steps hit before any val check
             last_val = self.validate()
             self._early_stop_check(last_val)
@@ -487,6 +510,58 @@ class Trainer:
         metrics.update(self._eval_losses("test"))
         self.logger.log_metrics(metrics, self.global_step)
         return metrics
+
+    def predict(
+        self,
+        output_path: str | pathlib.Path | None = None,
+        *,
+        top_k: int | None = None,
+    ) -> dict[str, np.ndarray]:
+        """Top-k recommendations for every predict user (the full
+        `is_predict` cohort), each user's train history excluded, through
+        the eval index's search (kernel 1 from 65,536 items).
+
+        Returns and, given a path, writes (`np.savez`) `user_id (U,)
+        int64`, `rec_item_ids (U, k)` and `rec_scores (U, k) float32`.
+        The reference writes the same three columns as
+        `predictions.parquet`; the card's machine has neither pandas nor
+        pyarrow, so the port writes `predictions.npz`.
+        """
+        self.setup()
+        self.build_index()
+        top_k = top_k or self.config.top_k
+        user_ids, rec_ids, rec_scores = [], [], []
+        for batch in self.data.eval_batches("predict"):
+            users = self._eval_user_embeds(batch)
+            scores, pred_ids = self.index.search(
+                users,
+                top_k=top_k,
+                exclude_positions=batch["exclude_positions"],
+            )
+            valid = np.asarray(batch["valid"], bool)
+            upos = np.asarray(batch["user_pos"])[valid]
+            user_ids.append(self.data.user_ids[upos].astype(np.int64))
+            rec_ids.append(pred_ids[valid])
+            rec_scores.append(scores[valid].astype(np.float32))
+        out = {
+            "user_id": np.concatenate(user_ids) if user_ids
+            else np.zeros(0, np.int64),
+            "rec_item_ids": np.concatenate(rec_ids) if rec_ids
+            else np.zeros((0, top_k), self.index.ids.dtype),
+            "rec_scores": np.concatenate(rec_scores) if rec_scores
+            else np.zeros((0, top_k), np.float32),
+        }
+        if output_path is not None:
+            output_path = pathlib.Path(output_path)
+            output_path.parent.mkdir(parents=True, exist_ok=True)
+            with output_path.open("wb") as f:
+                np.savez(f, **out)
+            logger.info(
+                "predictions for %d users written to %s",
+                len(out["user_id"]),
+                output_path,
+            )
+        return out
 
     def embed_texts(self, texts: list[str]) -> torch.Tensor:
         """Unit-norm embeddings of raw texts (the serving tokenizer)."""
