@@ -81,6 +81,20 @@ printing no result, when there is no card or any phase fails. Phases:
    and 512 seeded centres): the build, B=256 certified searches at
    nprobe 8, each certified row held to dense exact top-k, the probe's
    ms beside `search_certified("fused")`;
+12. multi-device, on four cards where the machine has them, else on a
+   virtual mesh of four slots on one card (printed): (a) phase 5's
+   corpus in a `ShardedRetrievalIndex` over 4 model shards, then a
+   2 x 2 (data x model) mesh, B=4096, k=100: `search` with exclusions,
+   `search_certified` "fused" and "packed", `sharded_certified_topk`
+   (f32, kernel 3), and the int8 corpus on 4 shards, every row held to
+   dense top-k on the card; kernels 1, 2 and 3 launched inside the
+   window; ms a batch beside the single card's "fused"; (b) phase 4's
+   served artifact behind `index_kind="sharded"`: 64 requests in one
+   burst, each the exact engine's answer; (c) the reference config, 3
+   steps on a 4-device mesh and 3 with `shard_vocab` at model_parallel
+   2, each == the single-device steps within 5e-5, the step's ms beside
+   the single device's, and `Trainer.fit(mesh=True, model_parallel=2)`
+   with one validation through `sharded_topk`;
 then the card, one JSON line for the kernels, and the result line.
 """
 
@@ -510,7 +524,8 @@ def scaled_queries(index, emb: torch.Tensor) -> torch.Tensor:
     return (q.float() * (0.25 / bound.float())).bfloat16()
 
 
-def check_exclusion_search(dense, ct, exclude, got_pos, k, tol, what):
+def check_exclusion_search(dense, ct, exclude, got_pos, k, tol, what,
+                           shards=1):
     """Hold exclusion-search answers against dense scores on the card.
 
     `packed_topk_excluding` is not certified: its scan keeps the top-2
@@ -523,15 +538,19 @@ def check_exclusion_search(dense, ct, exclude, got_pos, k, tol, what):
     of its second. Every returned item must be a possible survivor at or
     above the k-th sure score, and every sure survivor above the k-th
     possible score must be returned; no duplicates, no exclusions.
+    Over a corpus split in `shards` equal shards of whole tiles (the
+    sharded search), each shard keeps its own pair survivors.
     """
     batch, n = dense.shape
     half = ct // 2
     # a partial last tile: its padded lanes hold no item (the scan masks
     # them), so they score -inf and survive nothing
     dense = torch.nn.functional.pad(dense, (0, -n % ct), value=-math.inf)
-    per_pair = dense.view(batch, -1, 2, half).permute(0, 3, 1, 2)
-    top3 = torch.topk(per_pair.reshape(batch, half, -1), 3, dim=-1).values
-    pair_of = torch.arange(dense.shape[1], device=dense.device) % half
+    per_pair = dense.view(batch, shards, -1, 2, half).permute(0, 1, 4, 2, 3)
+    top3 = torch.topk(per_pair.reshape(batch, shards * half, -1), 3,
+                      dim=-1).values
+    columns = torch.arange(dense.shape[1], device=dense.device)
+    pair_of = columns // (dense.shape[1] // shards) * half + columns % half
     maybe = dense >= top3[:, pair_of, 1] - tol
     sure = dense > top3[:, pair_of, 2] + tol
     maybe[:, n:] = False
@@ -588,9 +607,9 @@ def check_direct_search(engine, rng, dev, what: str) -> tuple[float, float]:
     return direct_ms, exact_top / (BENCH_K * len(queries))
 
 
-def phase_serving(dev, card: str) -> dict:
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
-    root = pathlib.Path(tmp.name)
+def phase_serving(dev, card: str, root: pathlib.Path) -> dict:
+    """The served artifact is written under `root` and kept there for
+    phase 12."""
     texts, _ = synthesize_artifact(root, dev, card)
     check_portable(root, texts, dev, card)
     t0 = time.perf_counter()
@@ -715,10 +734,9 @@ def phase_serving(dev, card: str) -> dict:
         server.server_close()
         thread.join(timeout=30)
         service.close()
-        tmp.cleanup()
     print(f"serving path kernel launches: {launches}")
     check(launches["packed_scan"] > 0, "serving path never launched packed_scan")
-    return {"launches": launches}
+    return {"launches": launches, "texts": texts}
 
 
 def post_status(base: str, endpoint: str, payload: dict):
@@ -1146,12 +1164,23 @@ def packed_rows_off_quantum(index, queries, positions, tight, what,
     rows took the second test; `rows_held` (bool per row) limits the
     check to some rows.
     """
-    dev = index.device
-    corpus_f = index.corpus.float()
-    qnorm = float(np.linalg.norm(queries, axis=-1).max())
-    bound = np.float32(max(index._corpus_maxnorm * qnorm * 1.05, 1e-6))
+    return rows_off_quantum(index.corpus.float(), index._corpus_maxnorm,
+                            queries, positions, tight, what, rows_held)
+
+
+def rows_off_quantum(corpus_f, maxnorm, queries, positions, tight, what,
+                     rows_held=None, bound=None) -> int:
+    """`packed_rows_off_quantum` over the (N, D) f32 corpus `corpus_f`
+    (the stored rows, dequantized) whose largest row norm is `maxnorm`;
+    `bound` is the search's own score bound where it is not the single
+    card's host one."""
+    dev = corpus_f.device
+    if bound is None:
+        qnorm = float(np.linalg.norm(queries, axis=-1).max())
+        bound = torch.tensor(np.float32(max(maxnorm * qnorm * 1.05, 1e-6)),
+                             device=dev)
     q_bf = torch.from_numpy(queries).to(dev, torch.bfloat16)
-    scale = 0.25 / torch.tensor(bound, device=dev)
+    scale = 0.25 / bound
     q_s = (q_bf.float() * scale).bfloat16().float()
     pos_all = torch.as_tensor(positions).to(dev, torch.int64)
     held = (torch.ones(len(queries), dtype=torch.bool, device=dev)
@@ -3008,6 +3037,345 @@ def phase_history(dev, card: str, root: pathlib.Path) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: multi-device (the mesh, sharded search, the engine, training)
+# ---------------------------------------------------------------------------
+MESH_SIZE = 4
+MESH_BATCHES = 3  # B=4096 batches a path a mesh, the first a warm-up
+MESH_REQUESTS = 64
+MESH_STEPS = 3
+MESH_FIT_STEPS = 20
+# sharded steps against the single-device steps (dropout off): the repo's
+# parameter rule (PERF.md section 2)
+MESH_PARAM_TOL = 5e-5
+
+
+def mesh_devices(dev) -> tuple[list[torch.device], str]:
+    """Four real cards when the machine has them, else a virtual mesh of
+    four slots on one card."""
+    if torch.cuda.device_count() >= MESH_SIZE:
+        return ([torch.device("cuda", i) for i in range(MESH_SIZE)],
+                f"{MESH_SIZE} cards")
+    return [dev] * MESH_SIZE, (
+        f"a virtual mesh of {MESH_SIZE} slots on {dev}: the shards' sweeps "
+        "queue on one card one after another, so these times claim no "
+        "scaling")
+
+
+def sharded_tight(index, merge_levels: int) -> float:
+    """One key quantum (scaled units) of a sharded packed search: the
+    shard's tile bits plus the merge's reserved bits."""
+    local = index.corpus.shape[0] // index.num_shards
+    ct = topk.pick_corpus_tile(local, index.dim)
+    idx_bits = max((local // ct - 1).bit_length(), 1)
+    return quantum_scaled(idx_bits + merge_levels) + 1e-6
+
+
+def check_sharded_certified(index, corpus_f, queries, ids, merge_levels,
+                            what) -> int:
+    """Certified sharded answers == dense exact top-k at the key quantum
+    (rows the dense path answered: exact in the bf16 order). Returns the
+    rows that took the dense path's test."""
+    bound = index._score_bound(
+        torch.from_numpy(queries).to(corpus_f.device, torch.bfloat16))
+    return rows_off_quantum(corpus_f, index._corpus_maxnorm, queries, ids,
+                            sharded_tight(index, merge_levels), what,
+                            bound=bound)
+
+
+def mesh_search(index, corpus_f, batches, rng, what: str, card: str) -> dict:
+    """On one sharded index: exclusion search, `search_certified` by both
+    methods and the f32 `sharded_certified_topk`, every row held against
+    dense top-k on the card. Returns the mean host ms a batch by path."""
+    from xfmr_rec_torch.parallel.retrieval import sharded_certified_topk
+
+    dev = corpus_f.device
+    shards = index.num_shards
+    ms = {}
+    for method, merge in (("fused", 1), ("packed", 0)):
+        index.search_certified(batches[0], top_k=BENCH_K, method=method)
+        torch.cuda.synchronize()
+        times, dense_rows, bad = [], 0, 0
+        for queries in batches[1:]:
+            t0 = time.perf_counter()
+            _, ids = index.search_certified(queries, top_k=BENCH_K,
+                                            method=method)
+            times.append(time.perf_counter() - t0)
+            bad += index.last_certified_stats["pass1_bad"]
+            dense_rows += check_sharded_certified(
+                index, corpus_f, queries, ids, merge,
+                f"{what} search_certified({method!r})")
+        check(dense_rows <= bad, f"{what} {method}: rows off the quantum "
+              "exceed the rows the dense path answered")
+        ms[method] = 1e3 * sum(times) / len(times)
+        print(f"{what} search_certified({method!r}): every row == dense exact "
+              f"top-{BENCH_K} (one key quantum); {bad} rows to the dense "
+              f"path; {ms[method]:.3f} ms a batch (host wall) [{card}]")
+
+    # exclusion search: top-k of each shard's lane-pair survivors
+    q_bf = torch.from_numpy(batches[1]).to(dev, torch.bfloat16)
+    q_s = (q_bf.float() * (0.25 / index._score_bound(q_bf))).bfloat16()
+    excl = []
+    for start in range(0, len(q_bf), 512):
+        top = torch.topk(q_s[start:start + 512].float() @ corpus_f.T, 3,
+                         dim=1).indices.cpu().numpy()
+        excl += [[int(p) for p in row] for row in top]
+    excl = [row + [int(p) for p in rng.integers(0, len(corpus_f), 5)]
+            for row in excl]
+    t0 = time.perf_counter()
+    _, got = index.search(batches[1], top_k=BENCH_K, exclude_ids=excl)
+    ms["search"] = 1e3 * (time.perf_counter() - t0)
+    ct = topk.pick_corpus_tile(index.corpus.shape[0] // shards, index.dim)
+    got = torch.from_numpy(got.astype(np.int64)).to(dev)
+    tight = sharded_tight(index, 1)
+    for start in range(0, len(q_bf), 512):
+        rows = slice(start, start + 512)
+        check_exclusion_search(q_s[rows].float() @ corpus_f.T, ct,
+                               excl[rows], got[rows], BENCH_K, tight,
+                               f"{what} search", shards=shards)
+    print(f"{what} search with 8 exclusions a row (each row's dense top-3 "
+          f"among them): every row == dense top-{BENCH_K} of each shard's "
+          f"lane-pair survivors (one key quantum); {ms['search']:.3f} ms "
+          f"[{card}]")
+
+    # the f32 certificate (kernel 3) over the same shards
+    vals, pos, exact = sharded_certified_topk(q_bf, index.corpus, BENCH_K,
+                                              index.mesh)
+    certified = int(exact.sum())
+    check(certified > 0, f"{what} f32: no row certified")
+    rows = exact.nonzero().flatten()
+    for start in range(0, len(rows), 512):
+        sel = rows[start:start + 512]
+        dense = q_bf[sel].float() @ corpus_f.T
+        want = torch.topk(dense, BENCH_K, dim=1).values
+        check(bool(((vals[sel] - want).abs() <= 1e-5).all()),
+              f"{what} f32: certified values off dense top-k")
+        at = torch.gather(dense, 1, pos[sel].long())
+        check(bool(((at - vals[sel]).abs() <= 1e-5).all()),
+              f"{what} f32: positions do not hold their values")
+    print(f"{what} sharded_certified_topk (f32): {certified} of {len(q_bf)} "
+          f"rows certified, each == dense top-{BENCH_K} within 1e-5 [{card}]")
+    return ms
+
+
+def phase_mesh_search(dev, card: str, guaranteed: dict, devices,
+                      note: str) -> dict:
+    """(a) the guaranteed-search corpus split over 4 model shards, then
+    over a 2 x 2 (data x model) mesh, and int8 on 4 shards."""
+    from xfmr_rec_torch.index.sharded import ShardedRetrievalIndex
+    from xfmr_rec_torch.parallel.mesh import create_mesh
+
+    corpus_bf = guaranteed["corpus"]
+    corpus_f = corpus_bf.float()
+    ids = np.arange(BENCH_ITEMS)
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    batches = [
+        torch.nn.functional.normalize(
+            torch.randn(BENCH_BATCH, BENCH_DIM, device=dev, generator=g),
+            dim=1).cpu().numpy()
+        for _ in range(MESH_BATCHES)
+    ]
+    rng = np.random.default_rng(SEED + 12)
+    single = guaranteed["index"]
+    single.search_certified(batches[0], top_k=BENCH_K, method="fused")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for queries in batches[1:]:
+        single.search_certified(queries, top_k=BENCH_K, method="fused")
+    single_ms = 1e3 * (time.perf_counter() - t0) / (len(batches) - 1)
+    print(f"mesh: {note}")
+    kernels.reset_launch_counts()
+    ms = {}
+    for data, model in ((1, MESH_SIZE), (2, MESH_SIZE // 2)):
+        mesh = create_mesh(model_parallel=model, devices=devices)
+        index = ShardedRetrievalIndex(corpus_bf, ids, mesh=mesh)
+        check(index.num_shards == model and mesh.shape["data"] == data,
+              "the mesh is not the asked shape")
+        ms[(data, model)] = mesh_search(
+            index, corpus_f, batches, rng,
+            f"sharded {data}x{model} ({BENCH_ITEMS} x {BENCH_DIM} bf16, "
+            f"B={BENCH_BATCH})", card)
+        del index
+    mesh = create_mesh(model_parallel=MESH_SIZE, devices=devices)
+    index8 = ShardedRetrievalIndex(corpus_bf, ids, mesh=mesh, dtype="int8")
+    deq = index8.dequantized(dev)
+    index8.search_certified(batches[0], top_k=BENCH_K)
+    bad = dense_rows = 0
+    for queries in batches[1:]:
+        _, got = index8.search_certified(queries, top_k=BENCH_K)
+        bad += index8.last_certified_stats["pass1_bad"]
+        dense_rows += check_sharded_certified(
+            index8, deq, queries, got, 1, "sharded int8 search_certified")
+    check(dense_rows <= bad, "int8: rows off the quantum exceed the dense "
+          "path's rows")
+    print(f"sharded 1x{MESH_SIZE} int8: search_certified('fused') every row "
+          f"== dense exact top-{BENCH_K} over the dequantized rows (one key "
+          f"quantum); {bad} rows to the dense path [{card}]")
+    del index8, deq
+    launches = kernels.launch_counts()
+    print(f"mesh search kernel launches: {launches}")
+    for name in ("packed_scan", "threshold_select", "lane_max_scan"):
+        check(launches[name] > 0, f"the sharded paths never launched {name}")
+    for (data, model), row in ms.items():
+        print(f"sharded {data}x{model} ms a batch of {BENCH_BATCH}: "
+              f"search_certified('fused') {row['fused']:.3f}, ('packed') "
+              f"{row['packed']:.3f}, search {row['search']:.3f}; the single "
+              f"card's search_certified('fused') {single_ms:.3f} (host wall, "
+              f"this call; {note}) [{card}]")
+    return {"launches": launches, "ms": ms, "single_ms": single_ms}
+
+
+def phase_mesh_engine(dev, card: str, serve_root: pathlib.Path, devices,
+                      texts: list[str]) -> None:
+    """(b) the served artifact behind `index_kind="sharded"`: 64 requests
+    in one burst over HTTP (micro-batched), each answered as the exact
+    engine answers it; `add_items` refused."""
+    from xfmr_rec_torch.parallel.mesh import create_mesh
+
+    t0 = time.perf_counter()
+    engine = RecommenderEngine(
+        serve_root, index_kind="sharded", device=dev,
+        mesh=create_mesh(model_parallel=MESH_SIZE, devices=devices))
+    exact = RecommenderEngine(serve_root, device=dev)
+    load_s = time.perf_counter() - t0
+    service = RecService(engine, micro_batch=MESH_REQUESTS,
+                         micro_batch_wait_ms=20)
+    server = make_server(service, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(SEED + 13)
+    requests = [item_text(rng, i) for i in range(MESH_REQUESTS)]
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(MESH_REQUESTS) as pool:
+            futures = [pool.submit(post_json, base, "recommend_with_query",
+                                   {"query": {"text": t}, "top_k": 10})
+                       for t in requests]
+            served = [f.result(timeout=300) for f in futures]
+        burst_s = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        service.close()
+    # a batched request shares the batch's score bound (the bf16 query
+    # moves by up to a rounding step): held within 1e-2 of a unit score,
+    # as the serving phase holds its burst
+    loose = 1e-2
+    same = 0
+    for text, body in zip(requests, served, strict=True):
+        want = exact.search_items(Query(text=text), top_k=10)
+        got_ids = [c["movie_id"] for c in body]
+        want_ids = [c.movie_id for c in want]
+        same += got_ids == want_ids
+        check(len(got_ids) == len(want_ids), "a sharded answer is short")
+        check(all(abs(c["score"] - w.score) <= loose
+                  for c, w in zip(body, want, strict=True)),
+              "sharded scores off the exact engine's")
+        firm = {w.movie_id for w in want if w.score > want[-1].score + 2 * loose}
+        check(firm <= set(got_ids), "the sharded engine missed a firm item")
+    refused = False
+    try:
+        engine.add_items([ItemQuery(movie_rn=0, movie_id=-5, movie_text="x")])
+    except RuntimeError:
+        refused = True
+    check(refused, "add_items answered under index_kind='sharded'")
+    print(f"sharded engine ({MESH_SIZE} model shards of {len(texts)} served "
+          f"items; both engines loaded in {load_s:.2f} s): "
+          f"{MESH_REQUESTS} requests in one burst in {burst_s:.2f} s host "
+          f"wall, every answer the exact engine's within {loose} (the same "
+          f"lists in {same}); add_items refused [{card}]")
+
+
+def phase_mesh_training(dev, card: str, train_root: pathlib.Path, devices,
+                        note: str) -> None:
+    """(c) the reference config: 3 steps on a 4-device mesh and 3 with
+    `shard_vocab` at model_parallel=2, each held to the single-device
+    steps; the step's ms beside the single device's; then `Trainer.fit`
+    with `mesh=True, model_parallel=2` and one validation through the
+    sharded eval."""
+    from xfmr_rec_torch.data.module import DataConfig
+    from xfmr_rec_torch.parallel import (
+        create_mesh,
+        make_sharded_train_step,
+        shard_batch,
+    )
+    from xfmr_rec_torch.parallel.train import gathered_state_dict, place_state
+    from xfmr_rec_torch.training.trainer import Trainer, TrainerConfig
+
+    data = RecDataModule(DataConfig(data_dir=str(train_root / "ml1m")))
+    data.setup()
+    batches = [b for _, b in zip(range(MESH_STEPS), data.train_batches(0))]
+    config = dataclasses.replace(train_mod.TrainConfig(), dropout_rate=0.0)
+    single = train_mod.TrainState(config, seed=SEED, device=dev)
+    want = [train_mod.train_step(single, train_mod.batch_to_device(b, dev))
+            for b in batches]
+    single_params = {n: v.clone() for n, v in single.model.state_dict().items()}
+    one_batch = train_mod.batch_to_device(batches[0], dev)
+    one_ms = cuda_ms(lambda: train_mod.train_step(single, one_batch),
+                     iters=10, warmup=2)
+    for model_parallel, shard_vocab in ((1, False), (2, True)):
+        mesh = create_mesh(model_parallel=model_parallel, devices=devices)
+        state = train_mod.TrainState(config, seed=SEED, device=dev)
+        place_state(state, mesh, config, shard_vocab=shard_vocab)
+        step = make_sharded_train_step(config, mesh, shard_vocab=shard_vocab,
+                                       state=state)
+        worst_loss = 0.0
+        for batch, one in zip(batches, want, strict=True):
+            got = step(state, shard_batch(batch, mesh))
+            for key, value in one.items():
+                diff = abs(float(got[key]) - float(value))
+                worst_loss = max(worst_loss, diff / max(abs(float(value)), 1))
+                check(diff <= 1e-5 + 1e-4 * abs(float(value)),
+                      f"mesh step {key}: {float(got[key])} vs {float(value)}")
+        params = gathered_state_dict(state.model)
+        worst = max((params[n] - v).abs().max().item()
+                    for n, v in single_params.items())
+        check(worst <= MESH_PARAM_TOL,
+              f"mesh steps' parameters differ by {worst}")
+        what = (f"{mesh.shape['data']}x{mesh.shape['model']} mesh"
+                + (", shard_vocab" if shard_vocab else ""))
+        batch = shard_batch(batches[0], mesh)
+        mesh_ms = cuda_ms(lambda: step(state, batch), iters=10, warmup=2)
+        print(f"training on a {what}: {MESH_STEPS} steps of the reference "
+              f"config (dropout off) == the single-device steps (losses "
+              f"within {worst_loss:.2e} relative, parameters within "
+              f"{worst:.2e}); a step at batch {len(batches[0]['target'])}: "
+              f"{mesh_ms:.3f} ms against {one_ms:.3f} ms on one device "
+              f"(CUDA events; {note}) [{card}]")
+    t0 = time.perf_counter()
+    trainer = Trainer(
+        train_mod.TrainConfig(), data=data,
+        trainer_config=TrainerConfig(
+            mesh=True, model_parallel=2, max_steps=MESH_FIT_STEPS,
+            checkpointing=False, log_dir=str(train_root / "runs"),
+            run_name="mesh", seed=SEED),
+        device=dev, devices=devices)
+    val = trainer.fit()
+    fit_s = time.perf_counter() - t0
+    check(trainer.global_step == MESH_FIT_STEPS, "the mesh fit stopped early")
+    check(trainer._sharded_corpus is not None, "the eval corpus is not split")
+    retrieval = {k: v for k, v in val.items() if "/Retrieval" in k}
+    check(len(retrieval) == 6
+          and all(0.0 <= v <= 1.0 for v in retrieval.values()),
+          f"mesh fit metrics out of range: {val}")
+    check(all(math.isfinite(v) for v in val.values()), "mesh fit: not finite")
+    print(f"Trainer.fit(mesh=True, model_parallel=2): {MESH_FIT_STEPS} steps "
+          f"and one validation through sharded_topk over the split corpus "
+          f"in {fit_s:.2f} s host wall; val/RetrievalNormalizedDCG "
+          f"{val['val/RetrievalNormalizedDCG']:.4f} [{card}]")
+
+
+def phase_mesh(dev, card: str, guaranteed: dict, serve_root: pathlib.Path,
+               texts: list[str], train_root: pathlib.Path) -> dict:
+    devices, note = mesh_devices(dev)
+    search = phase_mesh_search(dev, card, guaranteed, devices, note)
+    phase_mesh_engine(dev, card, serve_root, devices, texts)
+    phase_mesh_training(dev, card, train_root, devices, note)
+    return search
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3039,23 +3407,27 @@ def main() -> int:
     count = phase_count(dev, scan["queries"], scan["corpus"], lane)
     fused = phase_fused_select(dev, scan["queries"], scan["corpus"])
     del lane["vals"], scan["keys"]
-    serving = phase_serving(dev, card)
-    guaranteed = phase_guaranteed(dev, card)
-    certified = phase_certified(dev, card, guaranteed)
-    timings = phase_timings(guaranteed, select, certified, card)
-    phase_profile(guaranteed, card, "fused")
-    phase_profile(guaranteed, card, "f32")
-    phase_ivf_clustered(dev, card)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as serve_tmp, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        serve_root = pathlib.Path(serve_tmp)
+        serving = phase_serving(dev, card, serve_root)
+        guaranteed = phase_guaranteed(dev, card)
+        certified = phase_certified(dev, card, guaranteed)
+        timings = phase_timings(guaranteed, select, certified, card)
+        phase_profile(guaranteed, card, "fused")
+        phase_profile(guaranteed, card, "f32")
+        phase_ivf_clustered(dev, card)
         training = phase_training(dev, card, pathlib.Path(tmp))
         history = phase_history(dev, card, pathlib.Path(tmp))
+        mesh = phase_mesh(dev, card, guaranteed, serve_root,
+                          serving["texts"], pathlib.Path(tmp))
 
     # launches on the main paths only: each path ran with the counts set
     # to 0 just before it and read just after
     launches = {
         name: sum(phase["launches"][name]
                   for phase in (serving, guaranteed, certified, training,
-                                history))
+                                history, mesh))
         for name in kernels.LAUNCHES
     }
     for name, count_ in launches.items():

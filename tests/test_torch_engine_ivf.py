@@ -6,8 +6,9 @@ served by both packages' engines, with the IVF probe and with
 restart loads its own `ivf/` (a hit), a cache the JAX engine wrote loads
 in the port and the other way round, a changed fingerprint rebuilds with
 a warning, a read-only directory warns. The recall guardrail raises
-under `ivf_enforce_recall`; `add_items` and `index_kind="sharded"` are
-refused; the micro-batcher and the serve CLI go through the IVF.
+under `ivf_enforce_recall`; `add_items` is refused under the IVF and
+under `index_kind="sharded"`, which serves; the micro-batcher and the
+serve CLI go through the IVF.
 """
 
 import concurrent.futures
@@ -180,8 +181,23 @@ def test_add_items_and_sharded_refused(engines, artifact):
     item = ItemQuery(movie_rn=999, movie_id=99999, movie_text="new")
     with pytest.raises(RuntimeError, match="index_kind='exact'"):
         port.add_items([item])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        PortEngine(artifact, index_kind="sharded", device=CPU)
+    # the sharded kind serves the artifact (split over a virtual mesh of
+    # two CPU devices) and refuses add_items the same way; its packed keys
+    # quantize scores, so it answers the exact index's lists up to swaps
+    # within a key quantum of the k-th
+    sharded = PortEngine(artifact, index_kind="sharded", model_parallel=2,
+                         device=CPU)
+    assert sharded.index.num_shards == 2
+    exact = PortEngine(artifact, warmup=False, device=CPU)
+    for text in TEXTS:
+        got = sharded.search_items(Query(text=text))
+        want = exact.search_items(Query(text=text))
+        np.testing.assert_allclose([c.score for c in got],
+                                   [c.score for c in want], atol=4e-3)
+        firm = {c.movie_id for c in want if c.score > want[-1].score + 8e-3}
+        assert firm <= {c.movie_id for c in got}
+    with pytest.raises(RuntimeError, match="index_kind='exact'"):
+        sharded.add_items([item])
     with pytest.raises(ValueError, match="unknown index_kind"):
         PortEngine(artifact, index_kind="hnsw", device=CPU)
 
@@ -211,9 +227,12 @@ def test_serve_cli_with_ivf(artifact, caplog, capsys):
                   "--index_kind", "ivf", "--nprobe", "3"])
     assert "golden-value checks passed" in caplog.text
     assert (artifact / "ivf" / "ivf.npz").exists()
+    assert prepare.parse_args(["--index_kind", "sharded"]).index_kind == (
+        "sharded"
+    )
     with pytest.raises(SystemExit):
-        prepare.parse_args(["--index_kind", "sharded"])
-    assert "Queue 1 item 11" in capsys.readouterr().err
+        prepare.parse_args(["--index_kind", "hnsw"])
+    assert "invalid choice" in capsys.readouterr().err
 
 
 def test_entry_points_default_to_the_card(artifact, monkeypatch):

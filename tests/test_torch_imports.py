@@ -5,7 +5,8 @@ optax, orbax, msgpack, pandas, pyarrow, pydantic or PyYAML. A
 `sys.meta_path` finder refuses those here, in a fresh interpreter, while
 every module of the port and `chip_smoke.py` is imported (the native
 tokenizer and BM25 bindings, the serve CLI, the IVF index, the portable
-encoder and the profiler helpers among them), the two file
+encoder, the profiler helpers, the mesh and the sharded index among
+them), the two file
 formats the history tower adds (flax msgpack, the user store) are
 written and read, and the native tokenizer and BM25 build and answer.
 """
@@ -37,7 +38,11 @@ required = {{"xfmr_rec_torch.native.tokenizer_native",
             "xfmr_rec_torch.serving.prepare",
             "xfmr_rec_torch.index.ivf",
             "xfmr_rec_torch.serving.portable",
-            "xfmr_rec_torch.utils.profiling"}}
+            "xfmr_rec_torch.utils.profiling",
+            "xfmr_rec_torch.parallel.mesh",
+            "xfmr_rec_torch.parallel.retrieval",
+            "xfmr_rec_torch.parallel.train",
+            "xfmr_rec_torch.index.sharded"}}
 assert required <= set(names), required - set(names)
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)

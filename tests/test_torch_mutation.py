@@ -510,9 +510,12 @@ def test_cli_parses_flags_and_passes_golden_checks(artifact, caplog,
                   "--allow-catalog-mutation"])
     assert caplog.text.count("golden-value checks passed") == 2
     assert prepare.parse_args(["--index_kind", "ivf"]).index_kind == "ivf"
+    prepare.main(["--artifact_dir", str(artifact), "--device", "cpu",
+                  "--index_kind", "sharded"])
+    assert caplog.text.count("golden-value checks passed") == 3
     with pytest.raises(SystemExit):
-        prepare.parse_args(["--index_kind", "sharded"])
-    assert "Queue 1 item 11" in capsys.readouterr().err
+        prepare.parse_args(["--index_kind", "annoy"])
+    assert "invalid choice" in capsys.readouterr().err
 
 
 def test_cli_trains_a_missing_artifact(tmp_path, monkeypatch):

@@ -138,8 +138,8 @@ def test_microbatcher_burst_matches_engine(engines):
 
 def test_dispatch_and_not_ported(artifact, engines):
     """Every endpoint dispatches; keyword search answers, add_items is
-    refused without the gate, the IVF index kind builds, and the one
-    refusal left is the sharded index (ROADMAP.md, Queue 1 item 11)."""
+    refused without the gate, and the IVF and sharded index kinds build
+    (the sharded one answers as the exact one on this artifact)."""
     _, port = engines
     service = RecService(port)
     out = dispatch(service, "recommend_with_query",
@@ -156,8 +156,15 @@ def test_dispatch_and_not_ported(artifact, engines):
         dispatch(service, "add_items", {"items": []})
     assert PortEngine(artifact, index_kind="ivf", warmup=False,
                       device="cpu").ivf is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PortEngine(artifact, index_kind="sharded", device="cpu")
+    sharded = PortEngine(artifact, index_kind="sharded", model_parallel=4,
+                         device="cpu")
+    out = dispatch(RecService(sharded), "recommend_with_query",
+                   {"query": {"text": "comedy"}, "top_k": 3})
+    want = dispatch(service, "recommend_with_query",
+                    {"query": {"text": "comedy"}, "top_k": 3})
+    # the same packed keys on two shards: scores within a key quantum
+    np.testing.assert_allclose([r["score"] for r in out],
+                               [r["score"] for r in want], atol=4e-3)
 
 
 def test_text_search_matches_jax_oracle(engines):

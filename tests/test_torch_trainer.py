@@ -13,7 +13,7 @@
   (embeddings within 1e-5).
 - One JSON config drives `fit` in both CLIs, and `--print_config`
   agrees.
-- Every refused config raises.
+- Every refused config raises (a mesh that cannot hold the config among them).
 """
 
 import dataclasses
@@ -277,21 +277,31 @@ def test_two_tower_and_cf_configs_accepted(tmp_path, model):
 @pytest.mark.parametrize(
     "model,trainer,match",
     [
-        pytest.param({}, dict(mesh=True), "multi-device",
+        pytest.param({}, dict(mesh=True, devices=[CPU] * 3),
+                     "divisible by the mesh size",
                      id="model1-trainer1-multi-device"),
-        pytest.param({}, dict(model_parallel=2), "multi-device",
+        pytest.param({}, dict(model_parallel=2, devices=[CPU] * 3),
+                     "not divisible by model_parallel",
                      id="model2-trainer2-multi-device"),
-        pytest.param({}, dict(shard_vocab=True), "multi-device",
+        pytest.param({}, dict(shard_vocab=True, devices=[CPU] * 3),
+                     "divisible by the mesh size",
                      id="model3-trainer3-multi-device"),
     ],
 )
 def test_refused_configs_raise(tmp_path, model, trainer, match):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    """Multi-device training is accepted (tests/test_torch_parallel_train.py
+    trains each of these on a CPU mesh); a mesh that cannot hold the
+    config raises the reference's error: a batch of 32 over three
+    devices, a model axis of 2 over three."""
+    trainer = dict(trainer)
+    devices = trainer.pop("devices")
+    with pytest.raises(ValueError, match=match):
         PortTrainer(
             PortTrainConfig(**model),
             data=PortDataConfig(data_dir=str(tmp_path)),
             trainer_config=PortTrainerConfig(log_dir=str(tmp_path), **trainer),
             device=CPU,
+            devices=devices,
         )
 
 

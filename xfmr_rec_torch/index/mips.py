@@ -341,6 +341,14 @@ class RetrievalIndex(CorpusMetadata):
     def dim(self) -> int:
         return self.corpus.shape[1]
 
+    def dequantized(self, device: torch.device) -> torch.Tensor:
+        """The (N, D) stored rows in f32 on `device` (int8 rows times
+        their scales)."""
+        rows = self.corpus.float()
+        if self._scales is not None:
+            rows = rows * self._scales[0][:, None]
+        return rows.to(device)
+
     def _scan_setup(self):
         """Padded corpus (+ scales) and tile geometry, built once and
         shared by the search and certified paths."""

@@ -32,8 +32,13 @@ the probe's recall@10 (a warning below `ivf_min_recall`, an error with
 query; with `ivf_certified` a row whose certificate fails is answered by
 the exact index (the packed scan, kernel 1, from 65,536 items), so every
 answer is exact. The IVF snapshots the corpus, so `add_items` is refused
-under it. Not ported yet (ROADMAP.md, Queue 1 item 11): the sharded
-index.
+under it.
+
+`index_kind="sharded"` loads the index as a `ShardedRetrievalIndex`
+(`index/sharded.py`) over `mesh`, by default every visible card with
+`model_parallel` of them (default all) on the model axis. Searches,
+the micro-batcher's included, go through it (`search_vectors`); it
+snapshots the corpus too, so `add_items` is refused.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import torch
 from xfmr_rec_torch.device import resolve_device
 from xfmr_rec_torch.index.ivf import IVFIndex
 from xfmr_rec_torch.index.mips import BM25Index, RetrievalIndex
+from xfmr_rec_torch.index.sharded import ShardedRetrievalIndex
 from xfmr_rec_torch.models.cf import CFChannel
 from xfmr_rec_torch.models.convert import (
     build_encoder,
@@ -64,6 +70,7 @@ from xfmr_rec_torch.models.tokenizer import (
     TokenizerConfig,
     VocabTokenizer,
 )
+from xfmr_rec_torch.parallel.mesh import Mesh, create_mesh
 from xfmr_rec_torch.params import (
     CF_NPZ,
     ENCODER_MSGPACK,
@@ -102,18 +109,14 @@ class RecommenderEngine:
         ivf_min_recall: float = 0.5,
         ivf_enforce_recall: bool = False,
         ivf_certified: bool = False,
+        model_parallel: int | None = None,
+        mesh: Mesh | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
         self.device = resolve_device(device)
         if index_kind not in _INDEX_KINDS:
             msg = f"unknown index_kind {index_kind!r}"
             raise ValueError(msg)
-        if index_kind == "sharded":
-            msg = (
-                "index_kind='sharded' is not ported yet (ROADMAP.md, "
-                "Queue 1 item 11)"
-            )
-            raise NotImplementedError(msg)
         self.index_kind = index_kind
         path = pathlib.Path(artifact_dir)
         self.manifest = json.loads((path / PROCESSORS_JSON).read_text())
@@ -142,7 +145,14 @@ class RecommenderEngine:
         else:
             _, _, state = load_portable(path)
             self.encoder = build_encoder(self.model_config, state, self.device)
-        self.index = RetrievalIndex.load(path / INDEX_DIR, device=self.device)
+        if index_kind == "sharded":
+            # one on-disk layout: the artifact serves on one device or
+            # split over the mesh's model axis
+            self.index = ShardedRetrievalIndex.load(
+                path / INDEX_DIR, mesh=mesh or self._default_mesh(model_parallel)
+            )
+        else:
+            self.index = RetrievalIndex.load(path / INDEX_DIR, device=self.device)
         self.ivf: IVFIndex | None = None
         self._ivf_certified = bool(ivf_certified)
         # rows the certified probe answered / handed to the exact index
@@ -177,10 +187,7 @@ class RecommenderEngine:
             # the stored corpus in f32, d-dim part, for the history gather:
             # the fusion casts it to compute_dtype, so at bf16 it reads the
             # values the trainer's f32 rows round to
-            corpus = self.index.corpus.float()
-            if self.index._scales is not None:
-                corpus = corpus * self.index._scales[0][:, None]
-            self._hist_corpus = corpus[
+            self._hist_corpus = self.index.dequantized(self.device)[
                 :, : self.model_config.hidden_size
             ].contiguous()
         self.users = (
@@ -195,6 +202,17 @@ class RecommenderEngine:
             # first search builds the kernels and pads the corpus, so
             # the first live request does not pay for it
             self.search_items(Query(text="warmup"), top_k=TOP_K)
+
+    def _default_mesh(self, model_parallel: int | None) -> Mesh:
+        """The sharded index's mesh: every visible card, `model_parallel`
+        of them (default all) on the model axis; on the CPU, a virtual
+        mesh of `model_parallel` (default 1) CPU devices."""
+        if self.device.type == "cuda":
+            return create_mesh(
+                model_parallel=model_parallel or torch.cuda.device_count()
+            )
+        shards = model_parallel or 1
+        return create_mesh(model_parallel=shards, devices=[self.device] * shards)
 
     def _load_ivf(self, path: pathlib.Path, nprobe: int) -> IVFIndex:
         """The IVF cached under `ivf/` when it was built from this
@@ -221,11 +239,10 @@ class RecommenderEngine:
                 "cached IVF was built from a different corpus (artifact "
                 "re-exported?); rebuilding"
             )
-        corpus = self.index.corpus.float()
-        if self.index._scales is not None:
-            corpus = corpus * self.index._scales[0][:, None]
         ivf = IVFIndex(
-            corpus.cpu().numpy(), self.index.ids, nprobe=nprobe,
+            self.index.dequantized(torch.device("cpu")).numpy(),
+            self.index.ids,
+            nprobe=nprobe,
             device=self.device,
         )
         try:
@@ -399,8 +416,9 @@ class RecommenderEngine:
         `_hist_corpus` afterwards, and both only grow. Ids must be new;
         concurrent calls serialize. The live engine offers no deletion:
         compaction would move positions under a user query in flight.
-        Refused under `index_kind="ivf"`: the IVF snapshots the corpus at
-        load and picks new items up from a re-exported artifact.
+        Refused under `index_kind="ivf"` and `"sharded"`: both snapshot
+        the corpus at load and pick new items up from a re-exported
+        artifact.
         """
         if self.index_kind != "exact":
             msg = (

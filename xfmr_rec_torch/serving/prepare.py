@@ -10,7 +10,8 @@ The arguments are parsed by `main` itself, so the installed
 `xfmr-rec-torch-serve` command reads them.
 
     xfmr-rec-torch-serve --artifact_dir artifacts/run --serve \\
-        [--allow-catalog-mutation] [--port 8000] [--index_kind ivf --nprobe 8]
+        [--allow-catalog-mutation] [--port 8000] \\
+        [--index_kind ivf --nprobe 8 | --index_kind sharded]
     python -m xfmr_rec_torch.serving.prepare --artifact_dir art --device cpu
 """
 
@@ -30,10 +31,6 @@ from xfmr_rec_torch.training.module import TrainConfig
 from xfmr_rec_torch.training.trainer import Trainer, TrainerConfig
 
 logger = logging.getLogger(__name__)
-
-# the reference's index kinds; "sharded" is not ported yet
-_SHARDED_NOT_PORTED = "ROADMAP.md, Queue 1 item 11"
-
 
 def prepare_artifact(
     artifact_dir: str | pathlib.Path, *, device: str = "cuda"
@@ -127,9 +124,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         help="serve over HTTP after the checks pass")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument(
-        "--index_kind", default="exact",
-        help="item search path: 'exact' (exhaustive) or 'ivf' (the IVF "
-        f"probe); 'sharded' is not ported yet ({_SHARDED_NOT_PORTED})",
+        "--index_kind", choices=["exact", "ivf", "sharded"], default="exact",
+        help="item search path: 'exact' (exhaustive, one device), 'ivf' "
+        "(the IVF probe) or 'sharded' (exact, split over every visible "
+        "card; one CPU device with --device cpu)",
     )
     parser.add_argument("--nprobe", type=int, default=8,
                         help="(ivf) clusters probed a query")
@@ -140,14 +138,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
         help="expose the add_items endpoint (off by default: any client of "
         "the port could otherwise grow the catalog)",
     )
-    args = parser.parse_args(argv)
-    if args.index_kind == "sharded":
-        parser.error(
-            f"--index_kind 'sharded' is not ported yet ({_SHARDED_NOT_PORTED})"
-        )
-    if args.index_kind not in ("exact", "ivf"):
-        parser.error(f"unknown --index_kind {args.index_kind!r}")
-    return args
+    return parser.parse_args(argv)
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -30,9 +30,15 @@ Port of `xfmr_rec_tpu/training/trainer.py` on one device:
   the reference's `predictions.parquet`: the card's machine has neither
   pandas nor pyarrow).
 
-Refused with an error (not ported yet, ROADMAP.md Queue 1 item 11):
-multi-device training (`mesh=True`, `model_parallel > 1`,
-`shard_vocab`).
+Multi-device (`parallel/`): with `mesh=True`, or by default when more
+than one device is given (`devices=`, else the visible cards), the
+trainer builds a (data, model) mesh with `model_parallel` on the model
+axis. A step is the single-device step over the global batch
+(`parallel/train.py`; the batch size must divide by the mesh size), and
+`shard_vocab` splits the token table over the model axis. Eval encodes
+in chunks padded to the mesh size; with `model_parallel > 1` the eval
+corpus is split over the model axis and searched by `sharded_topk`, its
+shard-balancing rows excluded.
 """
 
 from __future__ import annotations
@@ -54,6 +60,13 @@ from xfmr_rec_torch.index.mips import RetrievalIndex
 from xfmr_rec_torch.models.cf import factorize_item_cf
 from xfmr_rec_torch.models.convert import write_msgpack, write_portable
 from xfmr_rec_torch.models.encoder import needs_two_tower, uses_item_ids
+from xfmr_rec_torch.parallel.mesh import Mesh, create_mesh, shard_batch
+from xfmr_rec_torch.parallel.retrieval import place_rows, sharded_topk
+from xfmr_rec_torch.parallel.train import (
+    gathered_state_dict,
+    make_sharded_train_step,
+    place_state,
+)
 from xfmr_rec_torch.params import (
     CF_NPZ,
     INDEX_DIR,
@@ -71,7 +84,6 @@ from xfmr_rec_torch.utils.profiling import device_trace
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1 item 11)"
 # train steps traced under `profile_dir`: [PROFILE_STEPS[0], [1])
 PROFILE_STEPS = (10, 20)
 
@@ -107,15 +119,6 @@ class TrainerConfig:
     shard_vocab: bool = False
 
 
-def _refusals(tc: TrainerConfig) -> list[str]:
-    refused = []
-    if tc.mesh or tc.model_parallel > 1 or tc.shard_vocab:
-        refused.append(
-            "multi-device training (mesh, model_parallel, shard_vocab)"
-        )
-    return refused
-
-
 class Trainer:
     def __init__(
         self,
@@ -124,18 +127,42 @@ class Trainer:
         trainer_config: TrainerConfig | None = None,
         *,
         device: str | torch.device = "cuda",
+        devices: list[str | torch.device] | None = None,
     ) -> None:
         self.config = config or TrainConfig()
         self.trainer_config = trainer_config or TrainerConfig()
-        refused = _refusals(self.trainer_config)
-        if refused:
-            msg = f"{', '.join(refused)}: {_NOT_PORTED}"
-            raise NotImplementedError(msg)
+        tc = self.trainer_config
         self.device = resolve_device(device)
+        if devices is not None:
+            visible = [resolve_device(d) for d in devices]
+        elif self.device.type == "cuda" and self.device.index is None:
+            visible = [
+                torch.device("cuda", i) for i in range(torch.cuda.device_count())
+            ]
+        else:
+            visible = [self.device]
+        use_mesh = tc.mesh if tc.mesh is not None else len(visible) > 1
+        self.mesh: Mesh | None = None
+        if use_mesh:
+            self.mesh = create_mesh(
+                model_parallel=tc.model_parallel, devices=visible
+            )
+            self.device = self.mesh.lead
+        self._mesh_step = None
+        # the eval corpus split over the model axis (model_parallel > 1)
+        self._sharded_corpus = None
+        self._sharded_corpus_pad = 0
         if isinstance(data, RecDataModule):
             self.data = data
         else:
             self.data = RecDataModule(data or DataConfig())
+        if self.mesh is not None and self.data.config.batch_size % self.mesh.size:
+            msg = (
+                f"batch_size {self.data.config.batch_size} must be "
+                f"divisible by the mesh size {self.mesh.size} "
+                f"(shape {dict(self.mesh.shape)})"
+            )
+            raise ValueError(msg)
         run_name = self.trainer_config.run_name or time.strftime(
             "%Y%m%d-%H%M%S"
         )
@@ -203,6 +230,18 @@ class Trainer:
         self.state = TrainState(
             self.config, seed=self.trainer_config.seed, device=self.device
         )
+        if self.mesh is not None:
+            tc = self.trainer_config
+            place_state(
+                self.state, self.mesh, self.config, shard_vocab=tc.shard_vocab
+            )
+            self._mesh_step = make_sharded_train_step(
+                self.config,
+                self.mesh,
+                shard_vocab=tc.shard_vocab,
+                state=self.state,
+                log_all_losses=tc.log_all_losses,
+            )
         self.logger.log_hyperparams(
             {
                 "model": dataclasses.asdict(self.config),
@@ -246,6 +285,8 @@ class Trainer:
 
     def train_step(self, batch: dict[str, np.ndarray]) -> dict:
         """One update on a host batch; returns device metric tensors."""
+        if self._mesh_step is not None:
+            return self._mesh_step(self.state, shard_batch(batch, self.mesh))
         return train_mod.train_step(
             self.state,
             train_mod.batch_to_device(batch, self.device),
@@ -330,14 +371,30 @@ class Trainer:
         self, tokens: np.ndarray, rns: np.ndarray | None = None
     ) -> torch.Tensor:
         """Embeddings of a token matrix, `encode_batch_size` rows a pass,
-        left on the device; with `rns`, through the item tower."""
+        left on the device; with `rns`, through the item tower. On a mesh
+        each pass splits over the devices (padded to the mesh size)."""
         batch = self.trainer_config.encode_batch_size
         model = self.state.model
         outs = []
+        if self.mesh is not None:  # keep chunk shapes mesh-divisible
+            batch += -batch % self.mesh.size
         for start in range(0, len(tokens), batch):
             chunk = torch.from_numpy(tokens[start : start + batch]).to(
                 self.device
             )
+            if self._mesh_step is not None:
+                if rns is None:
+                    outs.append(self._mesh_step.encode(
+                        self.state, lambda m, t: m(t), chunk
+                    ))
+                else:
+                    outs.append(self._mesh_step.encode(
+                        self.state,
+                        lambda m, t, r: m.encode_items(t, r),
+                        chunk,
+                        torch.from_numpy(rns[start : start + batch]),
+                    ))
+                continue
             if rns is None:
                 outs.append(train_mod.encode(model, chunk))
                 continue
@@ -389,10 +446,49 @@ class Trainer:
             method="auto",
             device=self.device,
         )
+        if self.mesh is not None and self.mesh.shape["model"] > 1:
+            # corpus parallelism: the f32 item matrix split over the
+            # model axis, its shard-balancing rows excluded in the search
+            pad = -len(corpus) % self.mesh.shape["model"]
+            self._sharded_corpus = place_rows(
+                torch.nn.functional.pad(corpus.float(), (0, 0, 0, pad)),
+                self.mesh,
+            )
+            self._sharded_corpus_pad = pad
         return self.index
 
+    def _search(
+        self, users: torch.Tensor, batch: dict[str, np.ndarray], top_k: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """(scores, item ids) of one eval batch, its train history
+        excluded: the eval index, or `sharded_topk` over the split
+        corpus."""
+        if self._sharded_corpus is None:
+            return self.index.search(
+                users, top_k=top_k, exclude_positions=batch["exclude_positions"]
+            )
+        excl = np.asarray(batch["exclude_positions"], dtype=np.int32)
+        if self._sharded_corpus_pad:
+            n = self.data.num_items
+            pad_cols = np.broadcast_to(
+                np.arange(n, n + self._sharded_corpus_pad, dtype=np.int32),
+                (len(excl), self._sharded_corpus_pad),
+            )
+            excl = np.concatenate([excl, pad_cols], axis=1)
+        values, positions = sharded_topk(
+            users.float(),
+            self._sharded_corpus,
+            top_k,
+            self.mesh,
+            exclude_positions=torch.from_numpy(excl).to(self.device),
+        )
+        # clipped as the reference clips them: pad rows sit last and tie
+        # at -inf, so one comes back only when top_k exceeds the catalogue
+        positions = np.minimum(positions.cpu().numpy(), self.data.num_items - 1)
+        return values.cpu().numpy(), self.data.item_ids[positions]
+
     def _eval_retrieval(self, subset: str) -> dict[str, float]:
-        index = self.build_index()
+        self.build_index()
         top_k = self.config.top_k
         totals: dict[str, float] = {}
         count = 0
@@ -401,11 +497,7 @@ class Trainer:
             if limit is not None and batch_idx >= limit:
                 break
             users = self._eval_user_embeds(batch)
-            _, pred_ids = index.search(
-                users,
-                top_k=top_k,
-                exclude_positions=batch["exclude_positions"],
-            )
+            _, pred_ids = self._search(users, batch, top_k)
             # zero the padded rows' targets: the metrics drop them
             valid = batch["valid"][:, None]
             metrics = retrieval_metrics(
@@ -438,11 +530,21 @@ class Trainer:
             torch.from_numpy(np.ascontiguousarray(batch[name])).to(self.device)
             for name in names
         ]
-        out = self.state.model.encode_users_from_corpus(
-            torch.from_numpy(batch["user_tokens"]).to(self.device),
-            self._corpus_f32,
-            *extras,
-        )
+        tokens = torch.from_numpy(batch["user_tokens"]).to(self.device)
+        if self._mesh_step is not None:
+            corpus = self._corpus_f32
+            out = self._mesh_step.encode(
+                self.state,
+                lambda m, t, *rest: m.encode_users_from_corpus(
+                    t, corpus.to(t.device), *rest
+                ),
+                tokens,
+                *extras,
+            )
+        else:
+            out = self.state.model.encode_users_from_corpus(
+                tokens, self._corpus_f32, *extras
+            )
         return self._augment_query(out, batch.get("user_pos"))
 
     def _augment_query(
@@ -533,11 +635,7 @@ class Trainer:
         user_ids, rec_ids, rec_scores = [], [], []
         for batch in self.data.eval_batches("predict"):
             users = self._eval_user_embeds(batch)
-            scores, pred_ids = self.index.search(
-                users,
-                top_k=top_k,
-                exclude_positions=batch["exclude_positions"],
-            )
+            scores, pred_ids = self._search(users, batch, top_k)
             valid = np.asarray(batch["valid"], bool)
             upos = np.asarray(batch["user_pos"])[valid]
             user_ids.append(self.data.user_ids[upos].astype(np.int64))
@@ -638,7 +736,7 @@ class Trainer:
         UserStore.from_prepared(self.data.config.data_dir).save(
             path / USERS_NPZ
         )
-        state = self.state.model.state_dict()
+        state = gathered_state_dict(self.state.model)
         write_msgpack(state, path)
         if needs_two_tower(self.config):
             state = {
