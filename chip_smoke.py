@@ -8,7 +8,9 @@ Needs one CUDA card (H100, sm_90a) and nvcc; builds the kernels from
 `xfmr_rec_torch/csrc/` into `build/kernels/` first. Exits non-zero,
 printing no result, when there is no card or any phase fails. Phases:
 
-1. build the kernels;
+1. build the kernels, and the native tokenizer and BM25 libraries with
+   `g++` (required here: elsewhere the library calls' default,
+   `native=None`, falls back to the Python path after a warning);
 2. the packed scan kernel against its plain PyTorch version: bit for bit
    on inputs whose dot products are exact in f32 (also at the serving
    tower's width, at small batches whose corpus tiles the wrapper splits
@@ -21,7 +23,8 @@ printing no result, when there is no card or any phase fails. Phases:
    widths, 2^20 items, every text tokenized by the native tokenizer and
    encoded on the card), `RecService` over HTTP on localhost, every
    answer held against dense exact top-k on the card; BM25 keyword
-   search over HTTP against its `native=False` oracle; 1,024 items added
+   search over HTTP (the served index holding a native handle) against
+   its `native=False` oracle; 1,024 items added
    over HTTP under traffic (no request may fail; the grown index held
    against dense exact top-k); 1,024 items removed from a copy of the
    grown index, then `search_certified("fused")` on it held against
@@ -95,6 +98,23 @@ printing no result, when there is no card or any phase fails. Phases:
    2, each == the single-device steps within 5e-5, the step's ms beside
    the single device's, and `Trainer.fit(mesh=True, model_parallel=2)`
    with one validation through `sharded_topk`;
+13. (run last) tuning and the recommend surface on phase 9's 2^17-item
+   catalogue, so every validation and search runs kernel 1: (a) `tune`
+   of 4 configs from seed 0 (the default point first) in rungs of 40,
+   80 and 160 steps through `make_trainer_evaluator(device="cuda")`,
+   every trial a finite NDCG in [0, 1], kernel 1 launched at least once
+   a validation, the trial log read back and fed to
+   `warm_start_sampler`; (b) `TrialExecutor(platform="cuda",
+   workers=2)`, clamped to the cards present, runs (a)'s first rung in
+   a spawned worker (configs and trial ids equal, metrics within a
+   stated bound), and then a probe given to that worker by the
+   `"import"` spec reports its pid, its one visible card and its
+   kernel-1 launches; (c) on the winner retrained,
+   `recommend` for 64 user texts (3 ids each excluded) and
+   `recommend_users` for 64 users (train histories excluded), every
+   list dense top-k within a key quantum, `cli predict --user_id` in a
+   subprocess equal to `recommend_users`, and `recommend` with a raw
+   text on phase 10 (b)'s item-channel trainer;
 then the card, one JSON line for the kernels, and the result line.
 """
 
@@ -105,6 +125,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -118,7 +139,7 @@ import urllib.request
 import numpy as np
 import torch
 
-from xfmr_rec_torch.data.module import RecDataModule
+from xfmr_rec_torch.data.module import DataConfig, RecDataModule
 from xfmr_rec_torch.data.prepare import load_table, prepare_movielens
 from xfmr_rec_torch.data.synthetic import generate_movielens
 from xfmr_rec_torch.index.ivf import IVFIndex
@@ -126,12 +147,16 @@ from xfmr_rec_torch.index.mips import BM25Index, RetrievalIndex
 from xfmr_rec_torch.models.convert import torch_name
 from xfmr_rec_torch.models.encoder import ModelConfig, TextEncoder, init_encoder
 from xfmr_rec_torch.models.tokenizer import HashingTokenizer, TokenizerConfig
+from xfmr_rec_torch.native import bm25_native, tokenizer_native
 from xfmr_rec_torch.ops import kernels, topk, topk_f32
 from xfmr_rec_torch.serving.engine import RecommenderEngine
 from xfmr_rec_torch.serving.schemas import ItemQuery, Query
 from xfmr_rec_torch.serving.service import RecService, make_server
 from xfmr_rec_torch.training import cli
 from xfmr_rec_torch.training import module as train_mod
+from xfmr_rec_torch.training.trainer import Trainer, TrainerConfig
+from xfmr_rec_torch.tuning import hpo
+from xfmr_rec_torch.tuning.executor import TrialExecutor
 
 SEED = 0
 # the text tower the reference trains (BASELINE.md: BERT 1 layer,
@@ -479,7 +504,7 @@ def synthesize_artifact(root: pathlib.Path, dev,
                                            max_length=ENCODER["max_length"]))
     # every catalogue text through the native tokenizer and the encoder
     t0 = time.perf_counter()
-    tokens = tok.encode_batch(texts[:ENCODED_ITEMS])
+    tokens = tok.encode_batch(texts[:ENCODED_ITEMS], native=True)
     tokenize_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     py_tokens = tok.encode_batch(texts[:PY_TOKENIZE_SAMPLE], native=False)
@@ -709,6 +734,8 @@ def phase_serving(dev, card: str, root: pathlib.Path) -> dict:
             engine.index.metadata, "movie_text", engine.index.ids, "movie_id",
             [" ".join(rng.choice(WORDS, size=int(rng.integers(1, 4))))
              for _ in range(16)], card)
+        check(engine.index._fts._native is not None,
+              "the served item BM25 answered from the Python path")
 
         # (c) 1,024 items added under traffic, (d) removal + certified
         kernels.reset_launch_counts()
@@ -2865,6 +2892,8 @@ def phase_history(dev, card: str, root: pathlib.Path) -> dict:
             base, "search_users_text", engine.search_users_text,
             [{"user_text": t} for t in user_texts], "user_text",
             engine.users.arrays["user_id"], "user_id", user_queries, card)
+        check(engine._user_fts._native is not None,
+              "the served user BM25 answered from the Python path")
     finally:
         server.shutdown()
         server.server_close()
@@ -3034,7 +3063,7 @@ def phase_history(dev, card: str, root: pathlib.Path) -> dict:
           f"--artifact_dir <the flagship artifact> exited 0 with its golden "
           f"checks passed in {cli_s:.2f} s wall (process start, engine load "
           f"and checks) [{card}]")
-    return {"launches": launches}
+    return {"launches": launches, "wide": wide}
 
 
 # ---------------------------------------------------------------------------
@@ -3375,6 +3404,334 @@ def phase_mesh(dev, card: str, guaranteed: dict, serve_root: pathlib.Path,
     phase_mesh_training(dev, card, train_root, devices, note)
     return search
 
+# ---------------------------------------------------------------------------
+# phase 13: tuning and the recommend surface
+# ---------------------------------------------------------------------------
+TUNE_CONFIGS = 4
+# rungs of 40, 80 and 160 train steps (limit_train_batches as a count)
+TUNE_RUNGS = (40, 160)
+TUNE_TRAINER = {"limit_val_batches": 2, "limit_val_loss_batches": 1,
+                "val_check_interval": 1.0, "checkpointing": False,
+                "seed": SEED}
+# a worker's trial against the in-process trial of the same config on
+# the same card: every metric it returns (the retrieval metrics, at most
+# 5e-4 at these lengths, and the val loss family, of order 1 to 25)
+# within TUNE_ABS_TOL + TUNE_REL_TOL * |in-process value|. The embedding
+# backward sums with atomics, so no bit equality is claimed; the H100
+# readings behind these bounds are in PERF.md
+TUNE_ABS_TOL = 1e-5
+TUNE_REL_TOL = 1e-4
+PROBE_STEPS = 10
+RECOMMEND_QUERIES = 64
+
+
+def probe_trial(config: dict, resource: float) -> dict:
+    """A trial worker's view (the executor's `"import"` spec): its pid,
+    the cards it sees, and the kernel-1 launches of one trainer trial of
+    the default point of `resource` steps on `config["data_dir"]`."""
+    kernels.reset_launch_counts()
+    metrics = hpo.make_trainer_evaluator(
+        base_data={"data_dir": config["data_dir"]},
+        base_trainer={**TUNE_TRAINER, "log_dir": config["log_dir"],
+                      "run_name": "probe"},
+        device=config["device"],
+    )(hpo.SearchSpace().default_point(), int(resource))
+    return {**metrics, "pid": float(os.getpid()),
+            "device_count": float(torch.cuda.device_count()),
+            "packed_scan": float(kernels.launch_counts()["packed_scan"])}
+
+
+def metric_gap(got: dict, want: dict) -> tuple[float, float]:
+    """The largest |got - want| over a trial's metrics, and the largest
+    such difference over its bound (TUNE_ABS_TOL + TUNE_REL_TOL * |want|;
+    above 1 is out of bounds)."""
+    check(set(got) == set(want), f"metric names differ: {sorted(got)} "
+          f"against {sorted(want)}")
+    diffs = [abs(got[k] - want[k]) for k in want]
+    ratios = [abs(got[k] - want[k]) / (TUNE_ABS_TOL + TUNE_REL_TOL
+                                       * abs(want[k])) for k in want]
+    return max(diffs), max(ratios)
+
+
+def raw_text_queries(trainer, texts: list[str]) -> torch.Tensor:
+    """Query rows of raw texts built from the index's column layout,
+    apart from the trainer's own assembly: the text embedding, then 1
+    against the bias column (`item_bias`), then zero CF columns and the
+    popularity weight (a CF channel)."""
+    q = trainer.embed_texts(texts)
+    cols = [q]
+    if trainer.config.item_bias:
+        cols.append(torch.ones_like(q[:, :1]))
+    if trainer.cf is not None:
+        cols.append(q.new_zeros((len(texts), trainer.cf.rank)))
+        cols.append(torch.full_like(q[:, :1], trainer.config.cf_pop_weight))
+    out = torch.cat(cols, dim=1)
+    check(out.shape[1] == trainer.index.dim, f"raw-text rows of "
+          f"{out.shape[1]} columns against a {trainer.index.dim}-column "
+          f"index")
+    return out
+
+
+def check_recommend(trainer, lists, queries, exclude, top_k, what) -> None:
+    """Each list of `recommend` / `recommend_users` against dense exact
+    top-k on the card of the trainer's own query vectors over the index's
+    rows, within one key quantum (`check_exclusion_search`), no excluded
+    id in it."""
+    index = trainer.index
+    check(index.method == "scan", f"{what}: the index is {index.method!r}")
+    check(all(len(row) == top_k for row in lists), f"{what}: short list")
+    got_pos = torch.tensor(
+        [[index._id_to_pos[c["movie_id"]] for c in row] for row in lists],
+        device=index.device)
+    excl = [[index._id_to_pos[int(i)] for i in ids] for ids in exclude]
+    for row, ids in zip(lists, exclude, strict=True):
+        check(not {c["movie_id"] for c in row} & set(map(int, ids)),
+              f"{what}: an excluded id came back")
+    dense = scaled_queries(index, queries).float() @ index.corpus.float().T
+    tight = quantum_scaled(index_quantum_bits(index)) + 1e-6
+    check_exclusion_search(dense, index._scan_setup()[2], excl, got_pos,
+                           top_k, tight, what)
+
+
+def phase_tuning(dev, card: str, root: pathlib.Path, wide) -> dict:
+    """(a) `tune` in the process through `make_trainer_evaluator` on phase
+    9's 2^17-item catalogue (every validation on kernel 1): 4 configs, the
+    default point first, three rungs; (b) a `TrialExecutor` on the card
+    (clamped to the cards present) runs (a)'s first rung in a spawned
+    worker, and a probe trial shows the worker ran on the card; (c) the
+    recommend surface on the winner's trainer, `cli predict --user_id` in
+    a subprocess, and `recommend` with a raw text on phase 10 (b)'s
+    item-channel trainer. Every list is held against dense top-k."""
+    t_phase = time.perf_counter()
+    data_dir = root / "scan"
+    steps_per_epoch = int(load_table(data_dir, "ratings")["is_train"]
+                          .sum()) // 32
+    base_data = {"data_dir": str(data_dir)}
+    base_trainer = {**TUNE_TRAINER, "log_dir": str(root / "tune_runs")}
+    log_path = root / "tune" / "trials.jsonl"
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = hpo.tune(
+        hpo.make_trainer_evaluator(base_data=base_data,
+                                   base_trainer=base_trainer,
+                                   device=str(dev)),
+        num_samples=TUNE_CONFIGS, min_resource=TUNE_RUNGS[0],
+        max_resource=TUNE_RUNGS[1], reduction_factor=2, seed=SEED,
+        log_path=log_path,
+    )
+    tune_s = time.perf_counter() - t0
+    tune_launches = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    resources = sorted({t.resource for t in result.trials})
+    check(resources == [40, 80, 160], f"rungs at {resources}")
+    check([sum(t.resource == r for t in result.trials) for r in resources]
+          == [4, 2, 1], "the rungs did not halve 4 -> 2 -> 1")
+    check(result.trials[0].config == hpo.SearchSpace().default_point(),
+          "the first trial is not the default point")
+    metric = hpo.METRIC["name"]
+    for t in result.trials:
+        check(bool(t.metrics) and math.isfinite(t.metrics.get(metric, -1.0))
+              and 0.0 <= t.metrics[metric] <= 1.0,
+              f"trial {t.trial_id} failed or has no finite {metric} "
+              f"in [0, 1]: {t.metrics}")
+    validations = sum(
+        metric in json.loads(line)
+        for path in (root / "tune_runs").glob("*/metrics.jsonl")
+        for line in path.read_text().splitlines())
+    check(validations >= len(result.trials),
+          f"{validations} validations for {len(result.trials)} trials")
+    check(tune_launches["packed_scan"] >= validations,
+          f"kernel 1 launched {tune_launches['packed_scan']} times over "
+          f"{validations} validations")
+    logged = [json.loads(line) for line in log_path.read_text().splitlines()]
+    check([(r["trial_id"], r["config"], r["resource"], r["metric"])
+           for r in logged] == [(t.trial_id, t.config, t.resource, t.metric)
+                                for t in result.trials],
+          "the trial log does not read back to the trials")
+    sampler = hpo.AdaptiveSampler(hpo.SearchSpace(), seed=SEED, n_startup=2)
+    loaded = hpo.warm_start_sampler(sampler, log_path)
+    check(loaded == len(result.trials), f"warm start loaded {loaded}")
+    space = sampler.space
+    for prop in (sampler.propose() for _ in range(8)):
+        check(prop["train_loss"] in space.train_losses
+              and prop["num_negatives"] in {2 ** e for e in range(7)}
+              and space.sigma[0] <= prop["sigma"] <= space.sigma[1]
+              and space.margin[0] <= prop["margin"] <= space.margin[1]
+              and (space.learning_rate[0] <= prop["learning_rate"]
+                   <= space.learning_rate[1]),
+              f"a warm-started proposal lies outside the space: {prop}")
+    best = result.best_trial
+    print(f"tuning (a): `tune` of {TUNE_CONFIGS} configs (seed {SEED}, the "
+          f"default point first, reduction factor 2) through "
+          f"make_trainer_evaluator(device={str(dev)!r}) on {steps_per_epoch} "
+          f"steps an epoch: rungs of {resources} train steps "
+          f"(limit_train_batches), {len(result.trials)} trials, "
+          f"{validations} validations, kernel 1 launched "
+          f"{tune_launches['packed_scan']} times; wall {tune_s:.2f} s "
+          f"(host); trials "
+          + ", ".join(f"#{t.trial_id}@{t.resource} {t.metric:.4f} "
+                      f"({t.seconds:.2f} s)" for t in result.trials)
+          + f"; winner #{best.trial_id} {metric} {best.metric:.4f} "
+          f"{best.config}; the log reads back, warm start loaded {loaded} "
+          f"and proposed 8 configs inside the space [{card}]")
+
+    # (b) the executor on the card, and a probe of its worker
+    rung = [t for t in result.trials if t.resource == TUNE_RUNGS[0]]
+    t0 = time.perf_counter()
+    with TrialExecutor(
+        {"kind": "trainer", "base_data": base_data,
+         "base_trainer": {**base_trainer, "log_dir": str(root / "exec_runs")}},
+        workers=2, platform=dev.type,
+    ) as ex:
+        clamped = ex.workers
+        par = hpo.tune(None, executor=ex,
+                       configs=[t.config for t in rung],
+                       min_resource=TUNE_RUNGS[0],
+                       max_resource=TUNE_RUNGS[0], seed=SEED)
+        exec_s = time.perf_counter() - t0
+        # the same worker, now given the probe by the "import" spec
+        ex.spec = {"kind": "import", "path": "chip_smoke:probe_trial"}
+        (probe,) = ex.run([(0, {"data_dir": str(data_dir),
+                                "log_dir": str(root / "exec_runs"),
+                                "device": dev.type}, PROBE_STEPS)])
+    n_cards = torch.cuda.device_count()
+    check(clamped == min(2, n_cards), f"{clamped} workers on {n_cards} cards")
+    check([(t.trial_id, t.config, t.resource) for t in par.trials]
+          == [(t.trial_id, t.config, t.resource) for t in rung],
+          "the executor's trials differ from the in-process rung")
+    worst, worst_ratio = 0.0, 0.0
+    for got, want in zip(par.trials, rung, strict=True):
+        check(bool(got.metrics) and math.isfinite(got.metric),
+              f"worker trial {got.trial_id} failed: {got.metrics}")
+        diff, ratio = metric_gap(got.metrics, want.metrics)
+        worst, worst_ratio = max(worst, diff), max(worst_ratio, ratio)
+    check(worst_ratio <= 1.0, f"worker metrics part from the in-process "
+          f"ones by {worst} ({worst_ratio:.3g} times the bound)")
+    probe_m = probe.metrics
+    check(bool(probe_m), "the probe trial failed in its worker")
+    # the bound tells trainings apart: the probe is the default point
+    # (trial 0's config) after PROBE_STEPS steps instead of 40
+    _, apart = metric_gap({k: probe_m[k] for k in rung[0].metrics},
+                          rung[0].metrics)
+    check(apart > 1.0, f"the default point after {PROBE_STEPS} and after "
+          f"{TUNE_RUNGS[0]} steps lies within the bound ({apart:.3g} times "
+          f"it)")
+    check(probe_m["pid"] == probe.worker_pid != os.getpid(),
+          "the probe did not run in a worker process")
+    check(probe_m["device_count"] == 1, f"the worker sees "
+          f"{probe_m['device_count']:.0f} cards, not 1")
+    check(probe_m["packed_scan"] > 0, "the worker's trial never launched "
+          "kernel 1")
+    print(f"tuning (b): TrialExecutor(platform='cuda', workers=2) on "
+          f"{n_cards} card(s) clamped to {clamped} worker(s); (a)'s first "
+          f"rung ({len(rung)} trials of {TUNE_RUNGS[0]} steps) in the "
+          f"spawned worker in {exec_s:.2f} s wall (process start "
+          f"included): trial ids, configs and resources == (a)'s, "
+          f"every one of {len(rung[0].metrics)} metrics within "
+          f"{worst:.3e} of (a)'s, {worst_ratio:.3g} times the bound "
+          f"({TUNE_ABS_TOL} + {TUNE_REL_TOL} x |value|; the "
+          f"{PROBE_STEPS}-step probe of trial 0's config lies "
+          f"{apart:.3g} times it away); the probe in that worker: pid "
+          f"{probe_m['pid']:.0f} "
+          f"(parent {os.getpid()}), "
+          f"torch.cuda.device_count() {probe_m['device_count']:.0f}, "
+          f"kernel 1 launched {probe_m['packed_scan']:.0f} times by one "
+          f"{PROBE_STEPS}-step trial [{card}]")
+
+    # (c) the recommend surface on the winner's trainer
+    t0 = time.perf_counter()
+    winner = Trainer(
+        train_mod.TrainConfig(**best.config),
+        data=RecDataModule(DataConfig(**base_data)),
+        trainer_config=TrainerConfig(
+            **{**base_trainer, "checkpointing": True, "run_name": "winner",
+               "limit_train_batches": best.resource}),
+        device=dev,
+    )
+    winner.fit()
+    winner_s = time.perf_counter() - t0
+    top_k = winner.config.top_k
+    rng = np.random.default_rng(SEED + 13)
+    upos = rng.choice(winner.data.num_users, RECOMMEND_QUERIES,
+                      replace=False)
+    texts = [str(winner.data.user_texts[u]) for u in upos]
+    plain = winner.recommend(texts)
+    exclude = [[c["movie_id"] for c in row[:3]] for row in plain]
+    t0 = time.perf_counter()
+    lists = winner.recommend(texts, exclude_ids=exclude)
+    rec_ms = (time.perf_counter() - t0) * 1e3
+    # the dense reference's queries come from the eval path (the data
+    # module's user tokens, validation's bias and CF columns), not from
+    # `recommend`'s tokenization and assembly; the text tower with no CF
+    # makes the two the same rows
+    check(winner.config.user_tower == "text" and winner.cf is None,
+          "the winner is not a text tower without a CF channel")
+    check(np.array_equal(
+        winner.data.tokenizer.encode_batch(texts, winner.config.max_length),
+        winner.data.user_tokens[upos]),
+        "the user texts tokenize apart from the data module's user tokens")
+    user_queries = winner.eval_user_embeddings(upos)
+    text_queries = raw_text_queries(winner, texts)
+    check(torch.equal(text_queries, user_queries),
+          "recommend's query rows differ from the eval path's")
+    check_recommend(winner, lists, user_queries, exclude, top_k, "recommend")
+    history = [winner.data.train_history_item_ids(int(u)) for u in upos]
+    t0 = time.perf_counter()
+    user_lists = winner.recommend_users(upos, exclude_ids=history)
+    rec_users_ms = (time.perf_counter() - t0) * 1e3
+    check_recommend(winner, user_lists, user_queries, history, top_k,
+                    "recommend_users")
+    # `cli predict --user_id` in its own process on the winner's checkpoint
+    config = write_json(root / "winner.json", {
+        "model": best.config, "data": base_data,
+        "trainer": {**base_trainer, "run_name": "winner_cli"},
+    })
+    user_id = int(winner.data.user_ids[upos[0]])
+    t0 = time.perf_counter()
+    cli_run = subprocess.run(
+        [sys.executable, "-m", "xfmr_rec_torch.training.cli", "predict",
+         "--config", str(config), "--device", str(dev), "--ckpt",
+         str(winner._ckpt_path("last")), "--user_id", str(user_id)],
+        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=600, check=False,
+    )
+    cli_s = time.perf_counter() - t0
+    check(cli_run.returncode == 0, f"cli predict --user_id failed "
+          f"({cli_run.returncode}):\n{cli_run.stderr[-4000:]}")
+    printed = json.loads(cli_run.stdout)
+    # the same one-user call (a batch's score bound, and so its keys'
+    # quantum, depends on the queries in it)
+    want = winner.recommend_users(upos[:1], exclude_ids=history[:1])[0]
+    check([c["movie_id"] for c in printed] == [c["movie_id"] for c in want],
+          "cli predict --user_id differs from recommend_users")
+    score_diff = max(abs(a["score"] - b["score"])
+                     for a, b in zip(printed, want, strict=True))
+    check(score_diff <= 1e-6, f"cli predict --user_id scores part by "
+          f"{score_diff}")
+    # a raw text on the item-channel trainer (bias + CF columns)
+    raw = ["a quiet drama about family", "action thriller in space"]
+    wide_lists = wide.recommend(raw)
+    check_recommend(wide, wide_lists, raw_text_queries(wide, raw),
+                    [[] for _ in raw], wide.config.top_k, "wide recommend")
+    launches = kernels.launch_counts()
+    print(f"tuning (c): the winner retrained to {best.resource} steps in "
+          f"{winner_s:.2f} s; recommend for {RECOMMEND_QUERIES} user texts "
+          f"(the first 3 ids of each excluded) in {rec_ms:.1f} ms and "
+          f"recommend_users for {RECOMMEND_QUERIES} users (train histories "
+          f"excluded) in {rec_users_ms:.1f} ms (host wall), every list == "
+          f"dense top-{top_k} on the card within one key quantum, no "
+          f"excluded id; `cli predict --user_id {user_id}` in a subprocess "
+          f"in {cli_s:.2f} s printed recommend_users' list (scores within "
+          f"{score_diff:.1e}); recommend with a raw text on the "
+          f"{wide.index.dim}-column item-channel index gave "
+          f"{len(wide_lists[0])} rows == dense top-k; phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s [{card}]")
+    launches = {name: tune_launches[name] + launches[name]
+                for name in kernels.LAUNCHES}
+    print(f"tuning kernel launches in this process (the worker's not "
+          f"counted): {launches}")
+    return {"launches": launches}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3399,6 +3756,14 @@ def main() -> int:
             spills += 1
     check(spills == 0, f"ptxas reports register spills in {spills} kernels")
     kernels.load()
+    t0 = time.perf_counter()
+    # the host libraries: a failed g++ build fails here, where the library
+    # calls' default (native=None) would fall back to the Python path
+    tokenizer_native.load()
+    bm25_native.load()
+    native_s = time.perf_counter() - t0
+    print(f"native: the tokenizer and BM25 libraries built with g++ and "
+          f"loaded in {native_s:.2f} s")
     print(f"build: {build_s:.2f} s -> {lib_path.relative_to(pathlib.Path.cwd()) if lib_path.is_relative_to(pathlib.Path.cwd()) else lib_path}")
 
     scan = phase_scan(dev)
@@ -3421,13 +3786,14 @@ def main() -> int:
         history = phase_history(dev, card, pathlib.Path(tmp))
         mesh = phase_mesh(dev, card, guaranteed, serve_root,
                           serving["texts"], pathlib.Path(tmp))
+        tuning = phase_tuning(dev, card, pathlib.Path(tmp), history.pop("wide"))
 
     # launches on the main paths only: each path ran with the counts set
     # to 0 just before it and read just after
     launches = {
         name: sum(phase["launches"][name]
                   for phase in (serving, guaranteed, certified, training,
-                                history, mesh))
+                                history, mesh, tuning))
         for name in kernels.LAUNCHES
     }
     for name, count_ in launches.items():

@@ -156,6 +156,42 @@ def test_build_without_nvcc_fails_loudly(monkeypatch, tmp_path):
         kernels.build()
 
 
+@pytest.mark.parametrize("fail", [None, "compile", "link"])
+def test_build_leaves_no_per_process_files(monkeypatch, tmp_path, fail):
+    """A build writes its objects and library under this process's id and
+    renames them into place: a stand-in `nvcc` that writes its `-o`
+    file leaves one object a source and the library, and a failed
+    compile or link leaves nothing."""
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    exit_on = {"compile": '"$arg" = -c', "link": '"$arg" = -shared'}
+    fake.write_text(
+        "#!/bin/sh\n"
+        'out=""; prev=""\n'
+        'for arg in "$@"; do\n'
+        f'  if [ {exit_on.get(fail, "x = y")} ]; then exit 1; fi\n'
+        '  if [ "$prev" = -o ]; then out="$arg"; fi; prev="$arg"\n'
+        "done\n"
+        ': > "$out"\n'
+    )
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels.shutil, "which", lambda _: str(fake))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    if fail:
+        match = {"compile": "nvcc failed", "link": "nvcc link failed"}
+        with pytest.raises(RuntimeError, match=match[fail]):
+            kernels.build()
+        assert not list((tmp_path / "build").iterdir())
+        return
+    lib = kernels.build()
+    names = sorted(p.name for p in (tmp_path / "build").iterdir())
+    tag = lib.name.removeprefix("libxfmr_kernels_").removesuffix(".so")
+    assert names == sorted(
+        [lib.name]
+        + [f"{pathlib.Path(s).stem}_{tag}.o" for s in kernels.SOURCES]
+    )
+
+
 def test_kernel_sources_present():
     assert set(kernels.SOURCES) == {
         "packed_scan.cu", "threshold_select.cu", "lane_max_scan.cu",

@@ -42,7 +42,10 @@ required = {{"xfmr_rec_torch.native.tokenizer_native",
             "xfmr_rec_torch.parallel.mesh",
             "xfmr_rec_torch.parallel.retrieval",
             "xfmr_rec_torch.parallel.train",
-            "xfmr_rec_torch.index.sharded"}}
+            "xfmr_rec_torch.index.sharded",
+            "xfmr_rec_torch.tuning",
+            "xfmr_rec_torch.tuning.hpo",
+            "xfmr_rec_torch.tuning.executor"}}
 assert required <= set(names), required - set(names)
 for name in names + ["chip_smoke"]:
     importlib.import_module(name)
@@ -50,8 +53,10 @@ from xfmr_rec_torch.index.mips import BM25Index
 from xfmr_rec_torch.models.tokenizer import HashingTokenizer
 tok = HashingTokenizer(max_length=8)
 texts = ["Toy Story", "\u212aelvin"]
-assert (tok.encode_batch(texts) == tok.encode_batch(texts, native=False)).all()
-assert BM25Index([{{"t": "toy story"}}, {{"t": "heat"}}]).search("heat")[0][0] == 1
+assert (tok.encode_batch(texts, native=True)
+        == tok.encode_batch(texts, native=False)).all()
+fts = BM25Index([{{"t": "toy story"}}, {{"t": "heat"}}], native=True)
+assert fts.search("heat")[0][0] == 1
 from xfmr_rec_torch.utils import flax_msgpack
 tree = {{"a": {{"b": np.arange(6, dtype=np.float32).reshape(2, 3)}}}}
 back = flax_msgpack.loads(flax_msgpack.dumps(tree))

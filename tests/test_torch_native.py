@@ -9,9 +9,15 @@ from its Python path (a KELVIN SIGN, a capital I with a dot, a token of
 4097 bytes), on generated text with non-ASCII letters, at 1, 2 and 4
 hashes with and without CLS, and for the vocab tokenizer. The JAX
 library is built from a copy of its source in a temporary directory.
+
+Without a compiler (`PATH` pointed at an empty directory, a fresh build
+directory), the default `native=None` of both tokenizers and of BM25
+answers from the Python path after one logged warning, `native=True`
+raises `RuntimeError`, and the JAX package's `HashingTokenizer` raises.
 """
 
 import ctypes
+import logging
 import shutil
 import subprocess
 
@@ -22,10 +28,12 @@ from hypothesis import strategies as st
 
 from tests.test_native import CASES
 from xfmr_rec_torch import native
+from xfmr_rec_torch.index.mips import BM25Index
 from xfmr_rec_torch.models.tokenizer import HashingTokenizer as PortHashing
 from xfmr_rec_torch.models.tokenizer import TokenizerConfig as PortConfig
 from xfmr_rec_torch.models.tokenizer import VocabTokenizer as PortVocab
-from xfmr_rec_torch.native import tokenizer_native
+from xfmr_rec_torch.native import bm25_native, tokenizer_native
+from xfmr_rec_tpu.native import tokenizer_native as ref_tokenizer_native
 from xfmr_rec_tpu.models.tokenizer import (
     HashingTokenizer,
     TokenizerConfig,
@@ -205,3 +213,76 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="g\\+\\+ failed.*broken.cpp"):
         native.build("broken.cpp")
     assert not list((tmp_path / "build").iterdir())
+
+
+@pytest.fixture
+def no_compiler(tmp_path, monkeypatch):
+    """A host with no `g++`: PATH holds one empty directory, the build
+    directory is fresh, and no library is bound or remembered."""
+    empty = tmp_path / "bin"
+    empty.mkdir()
+    monkeypatch.setenv("PATH", str(empty))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_failed", {})
+    monkeypatch.setattr(native, "_warned", set())
+    monkeypatch.setattr(tokenizer_native, "_lib", None)
+    monkeypatch.setattr(bm25_native, "_lib", None)
+    return tmp_path
+
+
+def test_build_without_compiler_raises_runtime_error(no_compiler):
+    with pytest.raises(RuntimeError, match="no compiler"):
+        native.build("tokenizer.cpp")
+    # remembered: the next load raises without running the compiler
+    with pytest.raises(RuntimeError, match="no compiler"):
+        native.load("tokenizer.cpp")
+    assert not list((no_compiler / "build").iterdir())
+
+
+BM25_ROWS = [{"t": text} for text in
+             ["toy story toy", "heat", "story of a toy", "", "Heat wave heat"]]
+
+
+def fallback_answers(kind, native_arg):
+    """One answer of the component `kind` with `native=native_arg`."""
+    if kind == "hashing":
+        tok = port_tokenizer(num_hashes=2)
+        return tok.encode_batch(CASES + FAULTS + EDGES, native=native_arg)
+    if kind == "vocab":
+        tok = PortVocab(VOCAB, PortConfig(vocab_size=64, max_length=16))
+        return tok.encode_batch(VOCAB_TEXTS, native=native_arg)
+    index = BM25Index(BM25_ROWS, text_col="t", native=native_arg)
+    assert index._native is None
+    hits = [index.search(q, top_k=5) for q in ("toy", "heat story", "none")]
+    return np.array([(q, row, score) for q, qhits in enumerate(hits)
+                     for row, score in qhits])
+
+
+@pytest.mark.parametrize("kind", ["hashing", "vocab", "bm25"])
+def test_default_falls_back_without_compiler(no_compiler, caplog, kind):
+    want = fallback_answers(kind, False)
+    with caplog.at_level(logging.WARNING, logger="xfmr_rec_torch.native"):
+        got = fallback_answers(kind, None)
+        again = fallback_answers(kind, None)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(again, want)
+    warned = [r for r in caplog.records if "unavailable" in r.getMessage()]
+    assert len(warned) == 1, [r.getMessage() for r in caplog.records]
+    assert "using the Python path" in warned[0].getMessage()
+    if kind == "hashing":
+        np.testing.assert_array_equal(
+            got, python_ids(CASES + FAULTS + EDGES, num_hashes=2))
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        fallback_answers(kind, True)
+
+
+def test_reference_hashing_tokenizer_raises_without_compiler(
+        no_compiler, monkeypatch):
+    """The JAX package's `HashingTokenizer` guards the import of its
+    native module but not the build: with no compiler it raises."""
+    monkeypatch.setattr(ref_tokenizer_native, "_LIB",
+                        no_compiler / "libtokenizer.so")
+    monkeypatch.setattr(ref_tokenizer_native, "_lib", None)
+    tok = HashingTokenizer(TokenizerConfig(vocab_size=30522, max_length=8))
+    with pytest.raises(FileNotFoundError):
+        tok.encode_batch(["toy story"])

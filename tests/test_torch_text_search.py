@@ -117,7 +117,8 @@ def test_text_column_detected_and_missing():
 
 
 def test_failed_native_build_raises(monkeypatch):
-    """No quiet fallback: the Python path runs only under native=False."""
+    """A failed build raises under native=True; the default native=None
+    then answers from the Python path, as native=False does."""
     from xfmr_rec_torch.native import bm25_native
 
     def broken(source):
@@ -125,10 +126,15 @@ def test_failed_native_build_raises(monkeypatch):
         raise RuntimeError(msg)
 
     monkeypatch.setattr(bm25_native, "_lib", None)
+    monkeypatch.setattr(native, "_failed", {})
+    monkeypatch.setattr(native, "_warned", set())
     monkeypatch.setattr(native, "build", broken)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
-        PortBM25(list(DOCS), text_col="text")
-    assert PortBM25(list(DOCS), text_col="text", native=False).search("heat")
+        PortBM25(list(DOCS), text_col="text", native=True)
+    fallback = PortBM25(list(DOCS), text_col="text")
+    assert fallback._native is None
+    want = PortBM25(list(DOCS), text_col="text", native=False).search("heat")
+    assert want and fallback.search("heat") == want
 
 
 def test_index_search_text_matches_oracle():

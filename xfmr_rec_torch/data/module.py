@@ -184,6 +184,8 @@ class RecDataModule:
         if self._ready:
             return
         cfg = self.config
+        if self.provenance is None:
+            self.provenance = prepare_mod.load_provenance(cfg.data_dir)
         movies = prepare_mod.load_table(cfg.data_dir, "movies")
         users = prepare_mod.load_table(cfg.data_dir, "users")
         ratings = prepare_mod.load_table(cfg.data_dir, "ratings")

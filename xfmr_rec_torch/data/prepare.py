@@ -35,8 +35,16 @@ Semantics follow the reference step by step:
 Left out: the per-rating text columns (the texts live once in the movie
 and user tables and join by row number) and the users' history/target
 activity lists, which the batch pipeline never reads. Nothing is
-downloaded: with no raw files the caller generates a synthetic corpus
-(`data/synthetic.py`) or gets an error.
+downloaded (the reference's `download_data` is not ported): `main`
+unpacks `<data_dir>/ml-1m.zip` where a user has put it there
+(`unpack_data`) and prepares; with no raw files the caller generates a
+synthetic corpus (`data/synthetic.py`) or gets an error.
+
+    python -m xfmr_rec_torch.data.prepare --data_dir data
+
+The provenance record (`record_provenance`, read back by
+`load_provenance`) lives at `ml-1m/prepared/provenance.json`, beside the
+prepared tables, where the reference keeps `ml-1m/provenance.json`.
 """
 
 from __future__ import annotations
@@ -45,8 +53,11 @@ import json
 import logging
 import os
 import pathlib
+import shutil
 
 import numpy as np
+
+from xfmr_rec_torch.params import DATA_DIR
 
 logger = logging.getLogger(__name__)
 
@@ -63,6 +74,18 @@ _REAL_ML1M = {
     "num_movies": 3_883,
     "first_rating_line": "1::1193::5::978300760",
 }
+
+
+def unpack_data(
+    archive_file: str | pathlib.Path, *, overwrite: bool = False
+) -> list[str]:
+    """Unpack `<dir>/<name>.zip` into `<dir>/<name>/` (kept as it is
+    unless `overwrite`); returns the names of the unpacked files."""
+    archive_file = pathlib.Path(archive_file)
+    dest_dir = archive_file.parent / archive_file.stem
+    if not dest_dir.exists() or overwrite:
+        shutil.unpack_archive(archive_file, dest_dir.parent)
+    return [file.name for file in dest_dir.iterdir()]
 
 
 def raw_dir(src_dir: str | pathlib.Path) -> pathlib.Path:
@@ -349,7 +372,10 @@ def prepare_movielens(
 
 def record_provenance(src_dir: str | pathlib.Path, source: str) -> dict:
     """Record where the raw corpus came from, with a measured check
-    against the real ML-1M fingerprint, in `prepared/provenance.json`."""
+    against the real ML-1M fingerprint, in `prepared/provenance.json`.
+    With the raw files gone (a copied data directory) the prepared
+    tables' row counts stand in, a weaker fingerprint with no first-line
+    check, flagged in the label."""
     raw = raw_dir(src_dir)
 
     def count_lines(name: str) -> int:
@@ -359,30 +385,92 @@ def record_provenance(src_dir: str | pathlib.Path, source: str) -> dict:
         with path.open("rb") as fh:
             return sum(1 for _ in fh)
 
+    def count_rows(table: str) -> int:
+        path = prepared_path(src_dir, table)
+        if not path.exists():
+            return 0
+        with np.load(path, allow_pickle=False) as npz:
+            return len(npz[npz.files[0]])
+
     first_line = ""
     ratings_path = raw / "ratings.dat"
-    if ratings_path.exists():
+    raw_present = ratings_path.exists()
+    if raw_present:
         with ratings_path.open(encoding="iso-8859-1") as fh:
             first_line = fh.readline().strip()
-    counts = {
-        "num_ratings": count_lines("ratings.dat"),
-        "num_users": count_lines("users.dat"),
-        "num_movies": count_lines("movies.dat"),
-    }
-    matches = (
-        all(counts[key] == _REAL_ML1M[key] for key in counts)
-        and first_line == _REAL_ML1M["first_rating_line"]
+        counts = {
+            "num_ratings": count_lines("ratings.dat"),
+            "num_users": count_lines("users.dat"),
+            "num_movies": count_lines("movies.dat"),
+        }
+    else:
+        counts = {
+            "num_ratings": count_rows("ratings"),
+            "num_users": count_rows("users"),
+            "num_movies": count_rows("movies"),
+        }
+    matches = all(counts[key] == _REAL_ML1M[key] for key in counts) and (
+        not raw_present or first_line == _REAL_ML1M["first_rating_line"]
     )
     record = {
         "source": source,
         **counts,
-        "raw_files_present": ratings_path.exists(),
+        "raw_files_present": raw_present,
         "matches_real_ml1m": matches,
+        # the JAX package's labels, so one record reads the same in both
+        # (its prepared tables are parquet; the count is the same)
         "dataset_label": (
-            "MovieLens-1M" if matches else f"synthetic-ML1M ({source})"
+            (
+                "MovieLens-1M"
+                if raw_present
+                else "MovieLens-1M (parquet-count match)"
+            )
+            if matches
+            else f"synthetic-ML1M ({source})"
         ),
     }
     path = raw / PREPARED_DIR / "provenance.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(record, indent=2))
     return record
+
+
+def load_provenance(src_dir: str | pathlib.Path) -> dict:
+    """Read (or reconstruct, as "preexisting") the provenance record."""
+    path = raw_dir(src_dir) / PREPARED_DIR / "provenance.json"
+    if path.exists():
+        return json.loads(path.read_text())
+    return record_provenance(src_dir, source="preexisting")
+
+
+def main(argv: list[str] | None = None) -> None:
+    """Unpack `<data_dir>/ml-1m.zip` where it is present, then prepare the
+    raw files (always anew, as the reference's `main` does)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="MovieLens-1M raw files -> the port's prepared tables"
+    )
+    parser.add_argument("--data_dir", default=DATA_DIR)
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    archive = pathlib.Path(args.data_dir, "ml-1m.zip")
+    if archive.exists():
+        unpack_data(archive, overwrite=True)
+    if not (raw_dir(args.data_dir) / "ratings.dat").exists():
+        msg = (
+            f"no MovieLens files under {raw_dir(args.data_dir)}: nothing is "
+            f"downloaded; put ml-1m.zip in {args.data_dir}, or write a "
+            "synthetic corpus with `python -m xfmr_rec_torch.data.synthetic "
+            f"--data_dir {args.data_dir}`"
+        )
+        raise SystemExit(msg)
+    logger.info(
+        "data provenance: %s",
+        record_provenance(args.data_dir, source="preexisting"),
+    )
+    prepare_movielens(args.data_dir, overwrite=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -143,8 +143,10 @@ class BM25Index:
     """Okapi BM25 over one text column of metadata rows (k1 = 1.2,
     b = 0.75; positive scores only, ordered by score then row).
 
-    The build and the search run in C++ (`native/bm25.cpp`); with
-    `native=False` they run here, in numpy, as the oracle. The two give
+    The build and the search run in C++ (`native/bm25.cpp`) where it
+    builds, else (`native=None`, the default, after one logged warning)
+    or with `native=False` here, in numpy, as the oracle; `native=True`
+    requires the library and raises where it cannot be built. The two give
     the same rows and bit-identical scores: the oracle's arithmetic is
     the reference's Python loop with every float32 step spelled out (the
     length norm in float32, each term in float64 added to the float32
@@ -160,7 +162,7 @@ class BM25Index:
         metadata: list[dict],
         *,
         text_col: str | None = None,
-        native: bool = True,
+        native: bool | None = None,
     ) -> None:
         if text_col is None:
             sample = next((m for m in metadata if m), {})
@@ -172,10 +174,11 @@ class BM25Index:
         if text_col is None:
             return
         texts = [str(m.get(text_col, "")) for m in metadata]
-        if native:
-            from xfmr_rec_torch.native.bm25_native import NativeBM25
+        from xfmr_rec_torch import native as native_lib
+        from xfmr_rec_torch.native import bm25_native
 
-            self._native = NativeBM25(texts)
+        if native_lib.choose(native, bm25_native.load, "BM25"):
+            self._native = bm25_native.NativeBM25(texts)
             return
         postings: dict[str, dict[int, int]] = {}
         lengths = []

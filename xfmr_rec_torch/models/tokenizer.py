@@ -7,9 +7,11 @@ packages give identical id arrays for the same text. The config is a
 dataclass with the reference's field names and defaults.
 
 `encode_batch` runs the C++ tokenizer (`native/tokenizer.cpp`, built at
-first use) unless the caller passes `native=False`; the Python path is
-its oracle, and the two give the same ids on every input. `encode` (one
-text) stays Python.
+first use) where it builds; the Python path is its oracle, and the two
+give the same ids on every input. `native=None` (the default) falls
+back to the Python path, with one logged warning, where the library
+cannot be built (no `g++`); `native=True` raises there; `native=False`
+runs the Python path. `encode` (one text) stays Python.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import re
 
 import numpy as np
 
+from xfmr_rec_torch import native as native_lib
 from xfmr_rec_torch.native import tokenizer_native
 
 # Reserved token ids. PAD must be 0: attention masks and pooling treat
@@ -128,14 +131,14 @@ class HashingTokenizer:
         texts: list[str],
         max_length: int | None = None,
         *,
-        native: bool = True,
+        native: bool | None = None,
     ) -> np.ndarray:
         """Texts -> (batch, max_length, num_hashes) int32 (squeezed to
-        (batch, max_length) when num_hashes == 1); `native=False` runs
-        the Python path."""
+        (batch, max_length) when num_hashes == 1); `native` as in the
+        module docstring."""
         cfg = self.config
         max_length = max_length or cfg.max_length
-        if native:
+        if native_lib.choose(native, tokenizer_native.load, "tokenizer"):
             out = tokenizer_native.encode_batch(
                 texts,
                 max_length=max_length,
@@ -229,12 +232,12 @@ class VocabTokenizer:
         texts: list[str],
         max_length: int | None = None,
         *,
-        native: bool = True,
+        native: bool | None = None,
     ) -> np.ndarray:
-        """Texts -> (batch, max_length) int32, 0-padded; `native=False`
-        runs the Python path."""
+        """Texts -> (batch, max_length) int32, 0-padded; `native` as in
+        the module docstring."""
         max_length = max_length or self.config.max_length
-        if native:
+        if native_lib.choose(native, tokenizer_native.load, "tokenizer"):
             if self._native is None:
                 # the token -> id map is built once, at first use
                 self._native = tokenizer_native.VocabHandle(self.vocab)

@@ -24,7 +24,8 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def _load() -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
+    """The bound library, built at first use (`native.load`)."""
     global _lib
     with _lock:
         if _lib is None:
@@ -61,7 +62,7 @@ class NativeBM25:
     """Immutable native BM25 index over a list of document strings."""
 
     def __init__(self, docs: list[str]) -> None:
-        self._lib = _load()
+        self._lib = load()
         blob, offsets = pack(docs, lowercase=True)
         self.doc_lens = np.zeros(len(docs), dtype=np.float32)
         self._handle = self._lib.bm25_create(

@@ -26,7 +26,8 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
-def _load() -> ctypes.CDLL:
+def load() -> ctypes.CDLL:
+    """The bound library, built at first use (`native.load`)."""
     global _lib
     with _lock:
         if _lib is None:
@@ -79,7 +80,7 @@ def encode_batch(
     add_cls: bool,
 ) -> np.ndarray:
     """Texts -> (n, max_length, num_hashes) int32, 0-padded."""
-    lib = _load()
+    lib = load()
     blob, offsets = pack(texts, lowercase)
     out = np.zeros((len(texts), max_length, num_hashes), dtype=np.int32)
     lib.encode_batch(blob, offsets, len(texts), max_length, num_hashes,
@@ -91,7 +92,7 @@ class VocabHandle:
     """Owns a native token -> id map; freed with the object."""
 
     def __init__(self, vocab: list[str]) -> None:
-        self._lib = _load()
+        self._lib = load()
         blob, offsets = pack(vocab, lowercase=False)
         self._ptr = self._lib.vocab_create(blob, offsets, len(vocab))
 

@@ -93,12 +93,19 @@ def _nvcc() -> str:
     raise RuntimeError(msg)
 
 
+def _remove(paths: list[pathlib.Path]) -> None:
+    for path in paths:
+        path.unlink(missing_ok=True)
+
+
 def build(verbose: bool = False) -> pathlib.Path:
     """Compile the kernel sources (if needed) and return the library path.
 
-    One `nvcc -c` per source runs in parallel, then one link. Output goes
-    to a temporary name and is renamed into place, so a reader never sees
-    a half-written library.
+    One `nvcc -c` per source runs in parallel, then one link. The objects
+    and the library are written under names that hold this process's id
+    and renamed into place, so processes that build at the same moment
+    (trial workers) never write one file, a reader never sees a
+    half-written library, and no process leaves its own objects behind.
     """
     global last_build_log
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -111,10 +118,11 @@ def build(verbose: bool = False) -> pathlib.Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     extra = ("-Xptxas", "-v") if verbose else ()
+    pid = os.getpid()
     procs = []
     objects = []
     for name in SOURCES:
-        obj = BUILD_DIR / f"{pathlib.Path(name).stem}_{tag}.o"
+        obj = BUILD_DIR / f"{pathlib.Path(name).stem}_{tag}_{pid}.o"
         objects.append(obj)
         cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(CSRC_DIR / name),
                "-o", str(obj)]
@@ -133,17 +141,23 @@ def build(verbose: bool = False) -> pathlib.Path:
             failed.append(name)
     last_build_log = "\n".join(logs)
     if failed:
+        _remove(objects)
         msg = f"nvcc failed for {failed}:\n{last_build_log}"
         raise RuntimeError(msg)
-    tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
+    tmp = lib_path.with_suffix(f".tmp{pid}")
     link = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-shared", *map(str, objects), "-o", str(tmp)],
         capture_output=True, text=True, check=False,
     )
     if link.returncode:
+        _remove([*objects, tmp])
         msg = f"nvcc link failed:\n{link.stdout}\n{link.stderr}"
         raise RuntimeError(msg)
     tmp.replace(lib_path)
+    # one set of objects a build tag stays beside the library (its SASS
+    # is read by the tests); a racing build renames identical bytes
+    for name, obj in zip(SOURCES, objects, strict=True):
+        obj.replace(BUILD_DIR / f"{pathlib.Path(name).stem}_{tag}.o")
     return lib_path
 
 

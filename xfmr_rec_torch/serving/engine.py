@@ -490,6 +490,18 @@ class RecommenderEngine:
             raise NotFoundError(msg)
         return self.users.get(user_id)
 
+    def user_activity(
+        self, user_id: int, activity_name: str
+    ) -> dict[int, int]:
+        """{movie_id: rating} of a user's `history` or `target` ({} for a
+        user the store does not hold)."""
+        if self.users is None or user_id not in self.users:
+            return {}
+        return {
+            entry.movie_id: entry.rating
+            for entry in self.users.activities(user_id, activity_name)
+        }
+
     def process_user(self, user: UserQuery) -> Query:
         return Query(text=user.user_text)
 

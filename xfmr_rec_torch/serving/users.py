@@ -39,6 +39,9 @@ class UserStore:
     def __len__(self) -> int:
         return len(self.arrays["user_id"])
 
+    def __contains__(self, user_id: int) -> bool:
+        return int(user_id) in self._pos_of_id
+
     # -- construction ------------------------------------------------------
     @classmethod
     def from_tables(

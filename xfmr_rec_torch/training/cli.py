@@ -7,8 +7,9 @@ field's declared type, and `--print_config`. The config file is JSON
 CLIs) and `--print_config` prints JSON. `--device` picks the torch
 device (default `cuda`). `predict` runs the full predict cohort
 (`Trainer.predict`) into `--output` (default `<log dir>/predictions.npz`;
-the reference writes `predictions.parquet`); the reference's one-user
-`--user_id` form is not ported.
+the reference writes `predictions.parquet`), or, with `--user_id`, prints
+one user's top-k as a JSON list (`Trainer.recommend_users`, the user's
+train history excluded).
 
 Examples:
     python -m xfmr_rec_torch.training.cli fit --print_config
@@ -18,6 +19,7 @@ Examples:
         --trainer.max_epochs 2 --save_artifact artifacts/run
     python -m xfmr_rec_torch.training.cli test --ckpt runs/<run>/ckpt/best
     python -m xfmr_rec_torch.training.cli predict --ckpt runs/<run>/ckpt/best
+    python -m xfmr_rec_torch.training.cli predict --ckpt ... --user_id 1
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import sys
 import types
 import typing
 from typing import Any
+
+import numpy as np
 
 from xfmr_rec_torch.data.module import DataConfig, RecDataModule
 from xfmr_rec_torch.training.module import TrainConfig
@@ -130,6 +134,17 @@ def build_trainer(
     )
 
 
+def recommend_user(trainer: Trainer, user_id: int) -> list[dict[str, Any]]:
+    """One dataset user's top-k, the user's train history excluded."""
+    matches = np.flatnonzero(trainer.data.user_ids == user_id)
+    if not len(matches):
+        msg = f"unknown user_id {user_id}"
+        raise SystemExit(msg)
+    upos = int(matches[0])
+    exclude = trainer.data.train_history_item_ids(upos)
+    return trainer.recommend_users([upos], exclude_ids=[exclude])[0]
+
+
 def run(
     argv: list[str] | None = None,
 ) -> tuple[Trainer | None, dict[str, float] | None]:
@@ -153,6 +168,12 @@ def run(
     parser.add_argument("--ckpt", help="checkpoint path/name to restore")
     parser.add_argument(
         "--save_artifact", help="(fit) write serving artifact here after fit"
+    )
+    parser.add_argument(
+        "--user_id",
+        type=int,
+        help="(predict) print this one user's recommendations; omit to run "
+        "the full predict cohort to .npz",
     )
     parser.add_argument(
         "--output",
@@ -192,6 +213,9 @@ def run(
     elif args.subcommand == "test":
         metrics = trainer.test()
         logger.info("test: %s", metrics)
+    elif args.user_id is not None:
+        print(json.dumps(recommend_user(trainer, args.user_id), indent=2))
+        metrics = None
     else:
         output = args.output or str(
             trainer.logger.log_dir / "predictions.npz"

@@ -29,6 +29,10 @@ Port of `xfmr_rec_tpu/training/trainer.py` on one device:
   user's train history excluded and writes `predictions.npz` (in place of
   the reference's `predictions.parquet`: the card's machine has neither
   pandas nor pyarrow).
+- `recommend` (raw texts) and `recommend_users` (dataset users by
+  position) return each query's top-k as `{"movie_id", "score",
+  **metadata}` through the eval index, as the reference does even when
+  the eval corpus is split over the model axis.
 
 Multi-device (`parallel/`): with `mesh=True`, or by default when more
 than one device is given (`devices=`, else the visible cards), the
@@ -50,6 +54,7 @@ import logging
 import os
 import pathlib
 import time
+from typing import Any
 
 import numpy as np
 import torch
@@ -668,6 +673,60 @@ class Trainer:
             texts, self.config.max_length
         )
         return self._encode_rows(tokens)
+
+    def recommend(
+        self,
+        texts: list[str],
+        *,
+        top_k: int | None = None,
+        exclude_ids: list[list[int]] | None = None,
+    ) -> list[list[dict[str, Any]]]:
+        """Top-k items for raw texts through the eval index's search
+        (kernel 1 from 65,536 items), `exclude_ids` a list of item ids a
+        text. A raw text query carries the constant 1 paired with the
+        bias column (`item_bias`) and zero CF columns (no dataset user)."""
+        self.setup()
+        if self.index is None:
+            self.build_index()
+        embeds = self.embed_texts(texts)
+        if self.config.item_bias:
+            embeds = torch.cat([embeds, torch.ones_like(embeds[:, :1])], dim=1)
+        embeds = self._augment_query(embeds, None)
+        scores, item_ids = self.index.search(
+            embeds, top_k=top_k or self.config.top_k, exclude_ids=exclude_ids
+        )
+        return self._format_candidates(scores, item_ids)
+
+    def recommend_users(
+        self,
+        user_pos: np.ndarray | list[int],
+        *,
+        top_k: int | None = None,
+        exclude_ids: list[list[int]] | None = None,
+    ) -> list[list[dict[str, Any]]]:
+        """Top-k items for dataset users by position, on the eval path's
+        user vectors (`eval_user_embeddings`) and the eval index."""
+        embeds = self.eval_user_embeddings(np.asarray(user_pos))
+        scores, item_ids = self.index.search(
+            embeds, top_k=top_k or self.config.top_k, exclude_ids=exclude_ids
+        )
+        return self._format_candidates(scores, item_ids)
+
+    def _format_candidates(
+        self, scores: np.ndarray, item_ids: np.ndarray
+    ) -> list[list[dict[str, Any]]]:
+        """One list a query of {"movie_id", "score", **metadata}."""
+        return [
+            [
+                {
+                    "movie_id": int(i),
+                    "score": float(s),
+                    **self.index.get_id(int(i)),
+                }
+                for s, i in zip(row_scores, row_ids, strict=True)
+            ]
+            for row_scores, row_ids in zip(scores, item_ids, strict=True)
+        ]
 
     # ------------------------------------------------------------------
     # checkpointing + artifact
