@@ -98,6 +98,30 @@ printing no result, when there is no card or any phase fails. Phases:
    2, each == the single-device steps within 5e-5, the step's ms beside
    the single device's, and `Trainer.fit(mesh=True, model_parallel=2)`
    with one validation through `sharded_topk`;
+14. (run after 12) many processes: two processes on the card (two
+   mesh slots each, `chip_smoke.py --worker`) joined by
+   `initialize_distributed` (gloo, staged through host memory, where
+   they share one card; NCCL where each has its own), the backend
+   printed: (a) phase 5's corpus in a `ShardedRetrievalIndex` over a
+   1 x 4 mesh (the model axis across the processes) and a 2 x 2 one
+   (each model row inside a process, the reference's layout), B=4096,
+   k=100: `search` with 8 exclusions a row, `search_certified` "fused"
+   and "packed", `sharded_certified_topk` (f32, kernel 3), every row held
+   to dense top-k on the card by process 0, and on 2 x 2 the packed
+   search (no exclusions) with the batch split over the data axis equal
+   to the replicated one; each process's launches of kernels 1, 2 and 3 (each
+   > 0), the ms a batch beside phase 12's; (b) phase 4's artifact behind
+   `index_kind="sharded"` over 1 x 4: 64 requests through `RecService`'s
+   handlers in both processes, each the exact engine's answer; (c) 3
+   steps of the reference config and 3 of the flagship history tower
+   (f32) on a 4 x 1 mesh over the processes, each == 3 single-device
+   steps within 5e-5, then the reference config in bf16 (the port's
+   default), its step 1's losses and gradient norm held to one device's
+   within `MP_BF16_STEP1_RTOL`, the step's ms beside one device's; (d) the
+   checkpoint cycle through `Trainer(mesh=True)`: 2 steps,
+   `save_checkpoint` (process 0 writes), step 3; in a fresh group,
+   restore and step 3: the same loss and parameters bit for bit. Both
+   processes' answers, parameters and states are the same bits;
 13. (run last) tuning and the recommend surface on phase 9's 2^17-item
    catalogue, so every validation and search runs kernel 1: (a) `tune`
    of 4 configs from seed 0 (the default point first) in rungs of 40,
@@ -123,6 +147,7 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -3112,32 +3137,49 @@ def check_sharded_certified(index, corpus_f, queries, ids, merge_levels,
                             bound=bound)
 
 
-def mesh_search(index, corpus_f, batches, rng, what: str, card: str) -> dict:
+def digest(*arrays) -> str:
+    """sha256 of the arrays' bytes: two processes' answers compared."""
+    h = hashlib.sha256()
+    for array in arrays:
+        if torch.is_tensor(array):
+            array = array.detach().cpu().numpy()
+        h.update(np.ascontiguousarray(array).tobytes())
+    return h.hexdigest()
+
+
+def mesh_search(index, corpus_f, batches, rng, what: str, card: str,
+                hold: bool = True) -> tuple[dict, dict]:
     """On one sharded index: exclusion search, `search_certified` by both
     methods and the f32 `sharded_certified_topk`, every row held against
-    dense top-k on the card. Returns the mean host ms a batch by path."""
+    dense top-k on the card (with `hold`; a process of a group whose
+    answers another process holds passes False). Returns the mean host ms
+    a batch by path, and the digest of each path's answers."""
     from xfmr_rec_torch.parallel.retrieval import sharded_certified_topk
 
     dev = corpus_f.device
     shards = index.num_shards
-    ms = {}
+    ms, answers = {}, {}
+    held = "every row == dense exact" if hold else "answers digested for"
     for method, merge in (("fused", 1), ("packed", 0)):
         index.search_certified(batches[0], top_k=BENCH_K, method=method)
         torch.cuda.synchronize()
-        times, dense_rows, bad = [], 0, 0
+        times, dense_rows, bad, got = [], 0, 0, []
         for queries in batches[1:]:
             t0 = time.perf_counter()
             _, ids = index.search_certified(queries, top_k=BENCH_K,
                                             method=method)
             times.append(time.perf_counter() - t0)
+            got.append(ids)
             bad += index.last_certified_stats["pass1_bad"]
-            dense_rows += check_sharded_certified(
-                index, corpus_f, queries, ids, merge,
-                f"{what} search_certified({method!r})")
+            if hold:
+                dense_rows += check_sharded_certified(
+                    index, corpus_f, queries, ids, merge,
+                    f"{what} search_certified({method!r})")
         check(dense_rows <= bad, f"{what} {method}: rows off the quantum "
               "exceed the rows the dense path answered")
         ms[method] = 1e3 * sum(times) / len(times)
-        print(f"{what} search_certified({method!r}): every row == dense exact "
+        answers[method] = digest(*got)
+        print(f"{what} search_certified({method!r}): {held} "
               f"top-{BENCH_K} (one key quantum); {bad} rows to the dense "
               f"path; {ms[method]:.3f} ms a batch (host wall) [{card}]")
 
@@ -3154,26 +3196,28 @@ def mesh_search(index, corpus_f, batches, rng, what: str, card: str) -> dict:
     t0 = time.perf_counter()
     _, got = index.search(batches[1], top_k=BENCH_K, exclude_ids=excl)
     ms["search"] = 1e3 * (time.perf_counter() - t0)
+    answers["search"] = digest(got)
     ct = topk.pick_corpus_tile(index.corpus.shape[0] // shards, index.dim)
     got = torch.from_numpy(got.astype(np.int64)).to(dev)
     tight = sharded_tight(index, 1)
-    for start in range(0, len(q_bf), 512):
+    for start in range(0, len(q_bf), 512) if hold else ():
         rows = slice(start, start + 512)
         check_exclusion_search(q_s[rows].float() @ corpus_f.T, ct,
                                excl[rows], got[rows], BENCH_K, tight,
                                f"{what} search", shards=shards)
     print(f"{what} search with 8 exclusions a row (each row's dense top-3 "
-          f"among them): every row == dense top-{BENCH_K} of each shard's "
+          f"among them): {held} top-{BENCH_K} of each shard's "
           f"lane-pair survivors (one key quantum); {ms['search']:.3f} ms "
           f"[{card}]")
 
     # the f32 certificate (kernel 3) over the same shards
     vals, pos, exact = sharded_certified_topk(q_bf, index.corpus, BENCH_K,
                                               index.mesh)
+    answers["f32"] = digest(vals, pos, exact)
     certified = int(exact.sum())
     check(certified > 0, f"{what} f32: no row certified")
     rows = exact.nonzero().flatten()
-    for start in range(0, len(rows), 512):
+    for start in range(0, len(rows), 512) if hold else ():
         sel = rows[start:start + 512]
         dense = q_bf[sel].float() @ corpus_f.T
         want = torch.topk(dense, BENCH_K, dim=1).values
@@ -3183,8 +3227,9 @@ def mesh_search(index, corpus_f, batches, rng, what: str, card: str) -> dict:
         check(bool(((at - vals[sel]).abs() <= 1e-5).all()),
               f"{what} f32: positions do not hold their values")
     print(f"{what} sharded_certified_topk (f32): {certified} of {len(q_bf)} "
-          f"rows certified, each == dense top-{BENCH_K} within 1e-5 [{card}]")
-    return ms
+          f"rows certified, {'each == dense top-' if hold else 'top-'}"
+          f"{BENCH_K}{' within 1e-5' if hold else ' digested'} [{card}]")
+    return ms, answers
 
 
 def phase_mesh_search(dev, card: str, guaranteed: dict, devices,
@@ -3220,7 +3265,7 @@ def phase_mesh_search(dev, card: str, guaranteed: dict, devices,
         index = ShardedRetrievalIndex(corpus_bf, ids, mesh=mesh)
         check(index.num_shards == model and mesh.shape["data"] == data,
               "the mesh is not the asked shape")
-        ms[(data, model)] = mesh_search(
+        ms[(data, model)], _ = mesh_search(
             index, corpus_f, batches, rng,
             f"sharded {data}x{model} ({BENCH_ITEMS} x {BENCH_DIM} bf16, "
             f"B={BENCH_BATCH})", card)
@@ -3403,6 +3448,433 @@ def phase_mesh(dev, card: str, guaranteed: dict, serve_root: pathlib.Path,
     phase_mesh_engine(dev, card, serve_root, devices, texts)
     phase_mesh_training(dev, card, train_root, devices, note)
     return search
+
+# ---------------------------------------------------------------------------
+# phase 14: many processes (a process group over the card)
+# ---------------------------------------------------------------------------
+MP_WORLD = 2
+MP_SLOTS = 2  # mesh slots a process (four in all, as phase 12's mesh)
+MP_BATCHES = 2  # B=4096 batches a path a mesh, the first a warm-up
+MP_REQUESTS = 64
+MP_STEPS = 3
+MP_TIMEOUT_S = 300  # a worker's wall, its start included
+MP_LOOSE = 1e-2  # a served score against the exact engine's (phase 12's)
+# step 1 of the bf16 step over the processes against one device's, before
+# Adam amplifies the rounding of half-batch passes: every metric (losses
+# and the gradient norm) within this gap, relative (absolute below 1; the
+# H100 readings behind it are in PERF.md)
+MP_BF16_STEP1_RTOL = 1e-4
+
+
+def mp_corpus(dev) -> torch.Tensor:
+    """Phase 5's corpus, drawn again from its seed: (N, D) bf16 rows."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    return torch.nn.functional.normalize(
+        torch.randn(BENCH_ITEMS, BENCH_DIM, device=dev, generator=g), dim=1
+    ).bfloat16()
+
+
+def mp_search(dev, rank: int, spec: dict, card: str, say) -> dict:
+    """(a) phase 5's corpus in a `ShardedRetrievalIndex` over a 1 x 4 mesh
+    (the model axis across the processes) and a 2 x 2 one (each model row
+    inside a process, the reference's layout): phase 12's searches, held
+    to dense top-k by process 0; every process's answers digested."""
+    from xfmr_rec_torch.index.sharded import ShardedRetrievalIndex
+    from xfmr_rec_torch.parallel.mesh import create_mesh
+
+    corpus_bf = mp_corpus(dev)
+    check(digest(corpus_bf.view(torch.int16)) == spec["corpus"],
+          "the worker's corpus is not phase 5's")
+    corpus_f = corpus_bf.float()
+    root = pathlib.Path(spec["root"])
+    batches = [np.load(root / f"queries_{i}.npy") for i in range(MP_BATCHES)]
+    out = {}
+    for data, model in ((1, MESH_SIZE), (2, MESH_SIZE // 2)):
+        mesh = create_mesh(model_parallel=model, devices=[dev] * MP_SLOTS)
+        crosses = [len(set(row)) > 1 for row in mesh.owners.tolist()]
+        check(mesh.shape == {"data": data, "model": model}
+              and all(crosses) == (model > MP_SLOTS),
+              f"the process mesh is not the asked layout: {mesh}")
+        index = ShardedRetrievalIndex(corpus_bf, np.arange(BENCH_ITEMS),
+                                      mesh=mesh)
+        tag = f"{data}x{model}"
+        out[tag] = mesh_search(
+            index, corpus_f, batches, np.random.default_rng(SEED + 14),
+            f"[p{rank}] {MP_WORLD}-process {tag} ({BENCH_ITEMS} x "
+            f"{BENCH_DIM} bf16, B={BENCH_BATCH})", card, hold=rank == 0)
+        if data > 1:
+            out[tag][0].update(data_sharded_search(index, batches[1], card,
+                                                   say))
+        del index
+    launches = kernels.launch_counts()
+    say(f"(a) kernel launches of this process: {launches}")
+    for name in ("packed_scan", "threshold_select", "lane_max_scan"):
+        check(launches[name] > 0, f"process {rank} never launched {name}")
+    return {tag: {"ms": ms, "answers": answers}
+            for tag, (ms, answers) in out.items()}
+
+
+def data_sharded_search(index, queries: np.ndarray, card: str,
+                        say) -> dict:
+    """The packed search (no exclusions) with the batch split over the
+    data axis (each process sweeping its own rows; the index replicates
+    queries across processes, the reference's rule): the replicated
+    call's answer bit for bit, and each process's own rows
+    `process_allgather`ed back to it. Returns the host ms of both."""
+    from xfmr_rec_torch.parallel.mesh import process_allgather
+    from xfmr_rec_torch.parallel.retrieval import sharded_packed_topk_excluding
+
+    mesh = index.mesh
+    q = torch.from_numpy(queries).to(mesh.lead, torch.bfloat16)
+    kw = dict(score_bound=index._score_bound(q))
+    ms, answers = {}, {}
+    for split in (False, True):
+        for _ in range(2):  # a warm-up, then the timed call
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            answers[split] = sharded_packed_topk_excluding(
+                q, index.corpus, BENCH_K, mesh, shard_queries=split, **kw)
+            torch.cuda.synchronize()
+            ms[split] = 1e3 * (time.perf_counter() - t0)
+    want, got = answers[False], answers[True]
+    check(all(torch.equal(g, w) for g, w in zip(got, want, strict=True)),
+          "the data-sharded search differs from the replicated one")
+    per = len(q) // mesh.shape["data"]
+    own = torch.cat([got[1][i * per:(i + 1) * per]
+                     for i in range(mesh.shape["data"]) if mesh.owns_row(i)])
+    check(torch.equal(process_allgather(own.cpu(), tiled=True),
+                      got[1].cpu()),
+          "process_allgather of the processes' own rows is not the answer")
+    say(f"(a) packed search (no exclusions) with the batch split over the "
+        f"data axis (shard_queries=True): the replicated answer bit for "
+        f"bit, each process's own rows process_allgather'ed back; "
+        f"{ms[True]:.3f} ms against {ms[False]:.3f} ms replicated [{card}]")
+    return {"split": ms[True], "replicated": ms[False]}
+
+
+def mp_serve(dev, rank: int, spec: dict, card: str, say) -> dict:
+    """(b) phase 4's artifact behind `index_kind="sharded"` over a 1 x 4
+    mesh: 64 requests through `RecService`'s handlers in every process,
+    in one order, each held to the exact engine's answer."""
+    from xfmr_rec_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(model_parallel=MP_WORLD * MP_SLOTS,
+                       devices=[dev] * MP_SLOTS)
+    t0 = time.perf_counter()
+    engine = RecommenderEngine(spec["serve_root"], index_kind="sharded",
+                               device=dev, mesh=mesh)
+    load_s = time.perf_counter() - t0
+    service = RecService(engine)
+    expected = json.loads(pathlib.Path(spec["exact"]).read_text())
+    served, same = [], 0
+    t0 = time.perf_counter()
+    for text in expected:
+        served.append(service.recommend_with_query(Query(text=text), top_k=10))
+    wall = time.perf_counter() - t0
+    for body, (want_ids, want_scores) in zip(served, expected.values(),
+                                             strict=True):
+        got_ids = [c.movie_id for c in body]
+        same += got_ids == want_ids
+        check(len(got_ids) == len(want_ids), "a sharded answer is short")
+        check(all(abs(c.score - w) <= MP_LOOSE
+                  for c, w in zip(body, want_scores, strict=True)),
+              "sharded scores off the exact engine's")
+        firm = {i for i, w in zip(want_ids, want_scores, strict=True)
+                if w > want_scores[-1] + 2 * MP_LOOSE}
+        check(firm <= set(got_ids), "the sharded engine missed a firm item")
+    say(f"(b) sharded engine over {mesh.shape} ({SERVE_ITEMS} served items, "
+        f"loaded in {load_s:.2f} s): {len(served)} requests one after "
+        f"another through RecService in {wall:.2f} s host wall, each the "
+        f"exact engine's within {MP_LOOSE} (the same lists in {same}) "
+        f"[{card}]")
+    return {"answers": digest(np.array([[c.movie_id for c in body]
+                                        for body in served]),
+                              np.array([[c.score for c in body]
+                                        for body in served])),
+            "wall_s": wall}
+
+
+def mp_train(dev, rank: int, spec: dict, card: str, say) -> dict:
+    """(c) the reference config, then the flagship history tower, both in
+    f32: 3 steps on a 4 x 1 mesh over the processes against 3
+    single-device steps from the same init, held to `MESH_PARAM_TOL`;
+    then the reference config in bf16, the port's default, whose step 1
+    is held to `MP_BF16_STEP1_RTOL` (the halves of the batch that each
+    process encodes round otherwise than the whole batch does, and Adam's
+    sign steps lift that to lr by step 3: that parameter gap is only
+    reported); the step's ms beside one device's."""
+    from xfmr_rec_torch.parallel import make_sharded_train_step, shard_batch
+    from xfmr_rec_torch.parallel.mesh import create_mesh
+    from xfmr_rec_torch.parallel.train import gathered_state_dict, place_state
+
+    saved = torch.load(spec["batches"], weights_only=False)
+    out = {}
+    for name, model_kw, dtype in (("reference", {}, "float32"),
+                                  ("flagship", FLAGSHIP, "float32"),
+                                  ("reference-bf16", {}, "bfloat16")):
+        config = dataclasses.replace(train_mod.TrainConfig(**model_kw),
+                                     dropout_rate=0.0, compute_dtype=dtype)
+        batches = saved[name.removesuffix("-bf16")]
+        single = train_mod.TrainState(config, seed=SEED, device=dev)
+        want = [train_mod.train_step(single, train_mod.batch_to_device(b, dev))
+                for b in batches]
+        state = train_mod.TrainState(config, seed=SEED, device=dev)
+        mesh = create_mesh(model_parallel=1, devices=[dev] * MP_SLOTS)
+        place_state(state, mesh, config)
+        step = make_sharded_train_step(config, mesh, state=state)
+        worst_loss, step1 = 0.0, 0.0
+        for index, (batch, one) in enumerate(zip(batches, want, strict=True)):
+            got = step(state, shard_batch(batch, mesh))
+            for key, value in one.items():
+                diff = abs(float(got[key]) - float(value))
+                worst_loss = max(worst_loss, diff / max(abs(float(value)), 1))
+                if dtype == "float32":
+                    check(diff <= 1e-5 + 1e-4 * abs(float(value)),
+                          f"{name} step {key}: {float(got[key])} vs "
+                          f"{float(value)}")
+                elif index == 0:
+                    step1 = max(step1, diff / max(abs(float(value)), 1))
+        check(step1 <= MP_BF16_STEP1_RTOL,
+              f"{name} step 1: the metrics differ by {step1:.3e} relative")
+        params = gathered_state_dict(state.model)
+        theirs = single.model.state_dict()
+        worst = max((params[n] - v).abs().max().item()
+                    for n, v in theirs.items())
+        check(dtype != "float32" or worst <= MESH_PARAM_TOL,
+              f"{name}: the process mesh's parameters differ by {worst}")
+        first = shard_batch(batches[0], mesh)
+        mesh_ms = cuda_ms(lambda: step(state, first), iters=10, warmup=2)
+        one = train_mod.batch_to_device(batches[0], dev)
+        one_ms = cuda_ms(lambda: train_mod.train_step(single, one), iters=10,
+                         warmup=2)
+        held = (f"step 1's losses and gradient norm within {step1:.3e} "
+                f"(bound {MP_BF16_STEP1_RTOL}); over the {MP_STEPS} "
+                if dtype == "bfloat16" else "")
+        say(f"(c) {name} config ({dtype}) on a {mesh.shape['data']}x"
+            f"{mesh.shape['model']} process mesh: {MP_STEPS} steps (dropout "
+            f"off) against the single-device steps: {held}losses within "
+            f"{worst_loss:.3e} relative, parameters within {worst:.3e}; a "
+            f"step at batch {len(batches[0]['target'])}: {mesh_ms:.3f} ms "
+            f"against {one_ms:.3f} ms on one device (CUDA events) [{card}]")
+        out[name] = {"params": digest(*(params[n] for n in sorted(params))),
+                     "ms": mesh_ms, "single_ms": one_ms}
+    return out
+
+
+def mp_checkpoint(dev, rank: int, spec: dict, phase: str, say) -> dict:
+    """(d) the reference config (dropout on) through `Trainer(mesh=True)`
+    over the processes. Group A: 2 steps, `save_checkpoint` (the first
+    process writes), step 3. Group B, fresh: restore, step 3."""
+    from xfmr_rec_torch.parallel.train import gathered_state_dict
+
+    root = pathlib.Path(spec["root"])
+    trainer = Trainer(
+        train_mod.TrainConfig(),
+        data=RecDataModule(DataConfig(data_dir=str(root / "ckpt_data"))),
+        trainer_config=TrainerConfig(
+            mesh=True, model_parallel=2, log_dir=str(root / "runs"),
+            run_name="mp_ckpt", ckpt_dir=str(root / "ckpt"), seed=SEED),
+        device=dev, devices=[dev] * MP_SLOTS)
+    trainer.setup()
+    batches = [b for _, b in zip(range(3), trainer.data.train_batches(0))]
+    if phase == "a":
+        for batch in batches[:2]:
+            trainer.train_step(batch)
+        trainer.save_checkpoint("step2")
+    else:
+        trainer.restore_checkpoint("step2")
+        check(trainer.global_step == 2, "the restored step is not 2")
+    loss = float(trainer.train_step(batches[2])["train/PairwiseHingeLoss"])
+    check(math.isfinite(loss), "the step-3 loss is not finite")
+    params = gathered_state_dict(trainer.state.model)
+    say(f"(d) group {phase.upper()}: step 3 loss {loss!r} on a "
+        f"{trainer.mesh.shape} mesh over the processes")
+    return {"loss": loss.hex(),
+            "params": digest(*(params[n] for n in sorted(params)))}
+
+
+def worker_main(argv: list[str]) -> int:
+    """One process of phase 14 (`chip_smoke.py --worker <rank> <spec>`):
+    joins the group, runs (a)-(d), writes `worker_<rank>.json`. Prints
+    no result line."""
+    from xfmr_rec_torch.parallel.mesh import (
+        describe_transport,
+        initialize_distributed,
+        shutdown_distributed,
+    )
+
+    rank, spec_path = int(argv[0]), pathlib.Path(argv[1])
+    spec = json.loads(spec_path.read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def say(msg: str) -> None:
+        print(f"[p{rank}] {msg}", flush=True)
+
+    t_start = time.perf_counter()
+    # "cuda": the card LOCAL_RANK (here the rank) names, modulo the cards
+    dev = initialize_distributed(spec["init"][0], MP_WORLD, rank,
+                                 device=spec["device"])
+    try:
+        card = card_line()
+        say(f"joined a group of {MP_WORLD} processes on {dev} "
+            f"({torch.cuda.device_count()} card(s) visible): "
+            f"{describe_transport()}")
+        # the library phase 1 built; this process builds nothing
+        check(pathlib.Path(spec["library"]).exists()
+              and str(kernels.build()) == spec["library"],
+              "the worker did not find the built kernel library")
+        kernels.load()
+        kernels.reset_launch_counts()
+        result = {"rank": rank, "transport": describe_transport()}
+        t0 = time.perf_counter()
+        result["search"] = mp_search(dev, rank, spec, card, say)
+        result["search_s"] = time.perf_counter() - t0
+        result["serve"] = mp_serve(dev, rank, spec, card, say)
+        result["train"] = mp_train(dev, rank, spec, card, say)
+        result["ckpt_a"] = mp_checkpoint(dev, rank, spec, "a", say)
+        shutdown_distributed()
+        initialize_distributed(spec["init"][1], MP_WORLD, rank,
+                               device=spec["device"])
+        result["ckpt_b"] = mp_checkpoint(dev, rank, spec, "b", say)
+        result["launches"] = kernels.launch_counts()
+    finally:
+        shutdown_distributed()
+    result["wall_s"] = time.perf_counter() - t_start
+    (spec_path.parent / f"worker_{rank}.json").write_text(json.dumps(result))
+    say(f"done in {result['wall_s']:.1f} s")
+    return 0
+
+
+def mp_inputs(dev, root: pathlib.Path, serve_root: pathlib.Path,
+              train_root: pathlib.Path) -> dict:
+    """What the workers read: the query batches, the exact engine's
+    answers to the 64 requests, 3 training batches of each config, and a
+    small prepared corpus for the checkpoint cycle."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    for i in range(MP_BATCHES):
+        np.save(root / f"queries_{i}.npy", torch.nn.functional.normalize(
+            torch.randn(BENCH_BATCH, BENCH_DIM, device=dev, generator=g),
+            dim=1).cpu().numpy())
+    exact = RecommenderEngine(serve_root, device=dev)
+    rng = np.random.default_rng(SEED + 15)
+    answers = {}
+    for i in range(MP_REQUESTS):
+        text = item_text(rng, i)
+        want = exact.search_items(Query(text=text), top_k=10)
+        answers[text] = ([c.movie_id for c in want], [c.score for c in want])
+    write_json(root / "exact.json", answers)
+    del exact
+    batches = {}
+    for name, model_kw in (("reference", {}), ("flagship", FLAGSHIP)):
+        widths = {"max_history": FLAGSHIP["max_history"]} if model_kw else {}
+        data = RecDataModule(DataConfig(data_dir=str(train_root / "ml1m"),
+                                        **widths))
+        data.setup()
+        batches[name] = [b for _, b in zip(range(MP_STEPS),
+                                           data.train_batches(0))]
+    torch.save(batches, root / "batches.pt")
+    RecDataModule(DataConfig(data_dir=str(root / "ckpt_data"))).prepare_data()
+    return {"exact": str(root / "exact.json"),
+            "batches": str(root / "batches.pt")}
+
+
+def mp_answers(result: dict) -> dict:
+    """A worker's digests: every path's answers, the served lists, the
+    trained parameters."""
+    out = {f"search {tag} {path}": value
+           for tag, part in result["search"].items()
+           for path, value in part["answers"].items()}
+    out["serve"] = result["serve"]["answers"]
+    out.update({f"train {name}": part["params"]
+                for name, part in result["train"].items()})
+    return out
+
+
+def phase_multiprocess(dev, card: str, guaranteed: dict, mesh: dict,
+                       serve_root: pathlib.Path, train_root: pathlib.Path,
+                       lib_path: pathlib.Path) -> dict:
+    """Phase 14: two processes on the card (two mesh slots each) joined by
+    `initialize_distributed`, (a)-(d) in each (`worker_main`); their
+    answers the same bits, their launches added up."""
+    t_phase = time.perf_counter()
+    root = train_root / "multiprocess"
+    root.mkdir()
+    spec = {
+        "root": str(root),
+        "device": dev.type,
+        "serve_root": str(serve_root),
+        "library": str(lib_path),
+        "corpus": digest(guaranteed["corpus"].view(torch.int16)),
+        "init": [f"file://{root / 'store_a'}", f"file://{root / 'store_b'}"],
+        **mp_inputs(dev, root, serve_root, train_root),
+    }
+    spec_path = write_json(root / "spec.json", spec)
+    setup_s = time.perf_counter() - t_phase
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), "--worker",
+         str(rank), str(spec_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(MP_WORLD)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=MP_TIMEOUT_S)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for rank, (proc, out) in enumerate(zip(procs, outs, strict=True)):
+        print(out.rstrip())
+        check(proc.returncode == 0,
+              f"phase 14: worker {rank} exited {proc.returncode}")
+    results = [json.loads((root / f"worker_{rank}.json").read_text())
+               for rank in range(MP_WORLD)]
+    first, second = results
+    theirs = mp_answers(second)
+    for key, value in mp_answers(first).items():
+        check(theirs[key] == value, f"phase 14 ({key}): the processes' "
+              "answers differ")
+    for result in results:
+        check(result["ckpt_a"] == result["ckpt_b"],
+              f"phase 14 (d): process {result['rank']}'s resumed step 3 is "
+              "not the uninterrupted one, bit for bit")
+    check(first["ckpt_a"] == second["ckpt_a"],
+          "phase 14 (d): the processes' step-3 states differ")
+    launches = {name: sum(r["launches"][name] for r in results)
+                for name in kernels.LAUNCHES}
+    print(f"multi-process: {MP_WORLD} processes x {MP_SLOTS} slots on "
+          f"{dev} over {first['transport']}; every answer, parameter and "
+          f"step-3 state the same bits in both; launches of kernels 1 / 2 / "
+          f"3 by process: "
+          + ", ".join(f"p{r['rank']} {r['launches']['packed_scan']} / "
+                      f"{r['launches']['threshold_select']} / "
+                      f"{r['launches']['lane_max_scan']}" for r in results))
+    phase12 = mesh["ms"]
+    for tag, part in first["search"].items():
+        data, model = map(int, tag.split("x"))
+        ms, one = part["ms"], phase12[(data, model)]
+        split = (f"; the packed search without exclusions, the batch split "
+                 f"over the data axis {ms['split']:.3f} against replicated "
+                 f"{ms['replicated']:.3f}" if "split" in ms else "")
+        print(f"{MP_WORLD}-process {tag} ms a batch of {BENCH_BATCH}: "
+              f"search_certified('fused') {ms['fused']:.3f}, ('packed') "
+              f"{ms['packed']:.3f}, search {ms['search']:.3f}{split}; phase 12's "
+              f"one-process {tag} virtual mesh {one['fused']:.3f}, "
+              f"{one['packed']:.3f}, {one['search']:.3f} (host wall; four "
+              f"slots on one card either way, so no scaling is claimed) "
+              f"[{card}]")
+    for name, part in first["train"].items():
+        print(f"{MP_WORLD}-process step of the {name} config at batch 32: "
+              f"{part['ms']:.3f} ms against {part['single_ms']:.3f} ms on "
+              f"one device (CUDA events, process 0) [{card}]")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 14: {phase_s:.1f} s ({setup_s:.1f} s of it the inputs; "
+          f"workers {first['wall_s']:.1f} / {second['wall_s']:.1f} s, "
+          f"(a) {first['search_s']:.1f} s)")
+    return {"launches": launches}
+
 
 # ---------------------------------------------------------------------------
 # phase 13: tuning and the recommend surface
@@ -3786,6 +4258,9 @@ def main() -> int:
         history = phase_history(dev, card, pathlib.Path(tmp))
         mesh = phase_mesh(dev, card, guaranteed, serve_root,
                           serving["texts"], pathlib.Path(tmp))
+        multiprocess = phase_multiprocess(dev, card, guaranteed, mesh,
+                                          serve_root, pathlib.Path(tmp),
+                                          lib_path)
         tuning = phase_tuning(dev, card, pathlib.Path(tmp), history.pop("wide"))
 
     # launches on the main paths only: each path ran with the counts set
@@ -3793,7 +4268,7 @@ def main() -> int:
     launches = {
         name: sum(phase["launches"][name]
                   for phase in (serving, guaranteed, certified, training,
-                                history, mesh, tuning))
+                                history, mesh, multiprocess, tuning))
         for name in kernels.LAUNCHES
     }
     for name, count_ in launches.items():
@@ -3836,4 +4311,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker_main(sys.argv[2:]))
     sys.exit(main())

@@ -6,7 +6,8 @@ optax, orbax, msgpack, pandas, pyarrow, pydantic or PyYAML. A
 every module of the port and `chip_smoke.py` is imported (the native
 tokenizer and BM25 bindings, the serve CLI, the IVF index, the portable
 encoder, the profiler helpers, the mesh and the sharded index among
-them), the two file
+them; the multi-process workers of `tests/torch_multihost_workers.py`,
+which the card's machine runs too), the two file
 formats the history tower adds (flax msgpack, the user store) are
 written and read, and the native tokenizer and BM25 build and answer.
 """
@@ -47,8 +48,11 @@ required = {{"xfmr_rec_torch.native.tokenizer_native",
             "xfmr_rec_torch.tuning.hpo",
             "xfmr_rec_torch.tuning.executor"}}
 assert required <= set(names), required - set(names)
-for name in names + ["chip_smoke"]:
+for name in names + ["chip_smoke", "tests.torch_multihost_workers"]:
     importlib.import_module(name)
+from xfmr_rec_torch.parallel import initialize_distributed, process_allgather
+from xfmr_rec_torch.parallel.mesh import is_distributed
+assert not is_distributed()  # importing starts no process group
 from xfmr_rec_torch.index.mips import BM25Index
 from xfmr_rec_torch.models.tokenizer import HashingTokenizer
 tok = HashingTokenizer(max_length=8)

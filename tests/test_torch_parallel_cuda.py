@@ -13,10 +13,24 @@ where the machine has them. Run them with
 - the sharded packed functions give the keys of their plain versions:
   the same call on the CPU, bit for bit, on exact inputs;
 - 3 sharded steps (and 3 with `shard_vocab`) equal 3 single-device steps
-  within the repo's 5e-5 parameter rule.
+  within the repo's 5e-5 parameter rule;
+- two processes, two slots each (`tests/torch_multihost_workers.py`),
+  on the one card (gloo, staged through the host) or each on a card of
+  its own (NCCL, where the machine has two): a sharded
+  `search_certified("fused")` over a (1, 4) mesh gives the one-process
+  mesh's answer bit for bit in both, each process launching kernels 1
+  and 2; 3 steps on a (2, 2) mesh equal 3 single-card steps (losses and
+  gradient norms, which a world size counted twice would double, within
+  1e-4 relative; parameters within 5e-5), the two processes' parameters
+  the same bits.
 """
 
 import dataclasses
+import importlib.util
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -173,4 +187,84 @@ def test_sharded_steps_equal_single_device_steps(devices, shard_vocab):
     ours, theirs = gathered_state_dict(state.model), single.model.state_dict()
     worst = max((ours[n].cpu() - v.cpu()).abs().max().item()
                 for n, v in theirs.items())
+    assert worst <= 5e-5
+
+
+WORKERS = pathlib.Path(__file__).with_name("torch_multihost_workers.py")
+
+
+def workers_module():
+    """`tests/torch_multihost_workers.py`, loaded by its path (the card's
+    machine may have another `tests` package on the path)."""
+    spec = importlib.util.spec_from_file_location("torch_multihost_workers",
+                                                  WORKERS)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def two_processes(flow: str, directory: pathlib.Path) -> list[dict]:
+    """`flow` of `tests/torch_multihost_workers.py` in two processes on the
+    card (a file store under `directory`), each waited on with a timeout
+    and killed after it."""
+    root = WORKERS.resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(WORKERS), flow,
+             str(rank), "2", f"file://{directory / 'store'}", str(directory)],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        )
+        for rank in range(2)
+    ]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=300)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for proc, out in zip(procs, outs, strict=True):
+        assert proc.returncode == 0, out[-4000:]
+    return [torch.load(directory / f"{flow}_{rank}.pt", weights_only=False)
+            for rank in range(2)]
+
+
+def test_two_processes_search_like_one(devices, tmp_path):
+    workers = workers_module()
+    kernels.build()  # the workers load this library
+    results = two_processes("card_search", tmp_path)
+    want = workers.card_search(create_mesh(model_parallel=4,
+                                           devices=["cuda:0"] * 4))
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    for got in results:
+        assert got["transport"].startswith(backend), got["transport"]
+        np.testing.assert_array_equal(got["ids"], want["ids"])
+        np.testing.assert_array_equal(got["scores"], want["scores"])
+        assert got["launches"]["packed_scan"] > 0
+        assert got["launches"]["threshold_select"] > 0
+
+
+def test_two_processes_train_like_one_card(devices, tmp_path):
+    workers = workers_module()
+    r0, r1 = two_processes("card_steps", tmp_path)
+    for key, value in r0["params"].items():
+        assert torch.equal(value, r1["params"][key]), key
+    assert torch.equal(r0["losses"], r1["losses"])
+    assert torch.equal(r0["grad_norms"], r1["grad_norms"])
+    single = train_mod.TrainState(workers.card_config(), device="cuda")
+    for index, batch in enumerate(workers.card_batches()):
+        want = train_mod.train_step(
+            single, train_mod.batch_to_device(batch, torch.device("cuda"))
+        )
+        for got, key in ((r0["losses"], "train/PairwiseHingeLoss"),
+                         (r0["grad_norms"], "train/grad_norm")):
+            torch.testing.assert_close(
+                got[index], want[key].cpu(), rtol=1e-4, atol=1e-5,
+            )
+    worst = max((r0["params"][n] - v.cpu()).abs().max().item()
+                for n, v in single.model.state_dict().items())
     assert worst <= 5e-5

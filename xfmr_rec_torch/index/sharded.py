@@ -13,6 +13,10 @@ scales), the shard-balancing zero rows (`true_num_items` masks them),
 batch padding for the data axis, and the id and metadata surface. The
 on-disk layout is `RetrievalIndex`'s, so an index saved by either kind,
 in either package, loads in the other.
+
+On a mesh that spans processes, every process builds or loads the index
+(SPMD) and places only its own shards; every search is then called in
+every process, in the same order, and answers the same in each.
 """
 
 from __future__ import annotations
@@ -24,7 +28,15 @@ import numpy as np
 import torch
 
 from xfmr_rec_torch.index.mips import CorpusMetadata, _quantize
-from xfmr_rec_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, create_mesh
+from xfmr_rec_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    barrier,
+    create_mesh,
+    is_distributed,
+    process_count,
+)
 from xfmr_rec_torch.parallel.retrieval import (
     ShardedTensor,
     sharded_packed_certified_topk,
@@ -44,7 +56,8 @@ class ShardedRetrievalIndex(CorpusMetadata):
         ids: (N,) item ids aligned with rows.
         metadata: optional per-row dicts (drives get_id / search_text).
         mesh: the device mesh; default a model-parallel mesh over every
-            visible card (`create_mesh(model_parallel=m)`). On a 2-D mesh
+            visible card (`create_mesh(model_parallel=m)`), or under a
+            process group over every process's pinned card. On a 2-D mesh
             (data d x model m) queries split over the data axis too:
             each device's work is (B/d, N/m), batches pad to a multiple
             of d.
@@ -71,9 +84,8 @@ class ShardedRetrievalIndex(CorpusMetadata):
             msg = f"unsupported sharded corpus dtype {dtype!r}"
             raise ValueError(msg)
         if mesh is None:
-            mesh = create_mesh(
-                model_parallel=model_parallel or torch.cuda.device_count() or 1
-            )
+            cards = process_count() if is_distributed() else torch.cuda.device_count()
+            mesh = create_mesh(model_parallel=model_parallel or cards or 1)
         self.mesh = mesh
         self.num_shards = mesh.shape[MODEL_AXIS]
         self._data_size = mesh.shape[DATA_AXIS]
@@ -262,11 +274,18 @@ class ShardedRetrievalIndex(CorpusMetadata):
 
     # -- persistence (RetrievalIndex's layout) ---------------------------
     def save(self, path: str | pathlib.Path) -> None:
+        """Write the index (called in every process of the mesh; the
+        first writes, the others wait for it)."""
         path = pathlib.Path(path)
-        path.mkdir(parents=True, exist_ok=True)
         # dequantized: re-quantizing these exact values gives the same
         # int8 rows (round is idempotent on the grid)
         embeddings = self.dequantized(torch.device("cpu")).numpy()
+        if self.mesh.rank == 0:
+            self._write(path, embeddings)
+        barrier(self.mesh)
+
+    def _write(self, path: pathlib.Path, embeddings: np.ndarray) -> None:
+        path.mkdir(parents=True, exist_ok=True)
         np.savez(path / "corpus.npz", embeddings=embeddings, ids=self.ids)
         meta = {
             "id_col": self.id_col,

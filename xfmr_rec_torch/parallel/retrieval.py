@@ -6,19 +6,24 @@ against the queries with the port's own entry points (`sharded_topk` by
 one f32 matmul; the certified paths through `ops/topk_f32.py`
 `lane_max_scan`, kernel 3, and `ops/topk.py` `packed_certified_parts`,
 kernels 1 and 2), takes its local top-k, and the (m, B, k) candidate sets
-merge on the lead device of the data row (`mesh.gather_columns`),
-never the (B, N) score matrix. Positions are global int32
-(`shard * local_n + local position`).
+merge per data row (`mesh.gather_columns`), never the (B, N) score
+matrix. Positions are global int32 (`shard * local_n + local position`).
 
 The exactness certificate composes across shards: a row is exact when
 the largest key (or score) any shard evicted is at most the merged k-th
 (`mesh.pmax`). With `shard_queries` the batch splits over the "data"
-axis too (each device sweeps (B/d, N/m)); the data rows' results are
-gathered to the mesh's lead device. Selections go through `topk_stable`,
-so positions come out in the reference's order, ties included. Where the
-reference skips a retry round on the device (`lax.cond`),
-`sharded_packed_guaranteed_topk` decides on the host, as the port's
-single-card `packed_guaranteed_topk` does.
+axis too (each slot sweeps (B/d, N/m)); the data rows' results are
+gathered to every process's lead device. Selections go through
+`topk_stable`, so positions come out in the reference's order, ties
+included. Where the reference skips a retry round on the device
+(`lax.cond`), `sharded_packed_guaranteed_topk` decides on the host, as
+the port's single-card `packed_guaranteed_topk` does.
+
+On a mesh that spans processes, a process sweeps only its own slots; a
+data row whose slots lie in several processes merges over that row's
+process group, each of its processes taking the same merged pool (and so
+the same retry decisions), and the rows are then gathered so that every
+process returns the same answer.
 
 A corpus given as one (N, D) tensor is split and placed on each call;
 `place_rows` / `place_columns` place it once (the index does).
@@ -48,7 +53,9 @@ NEG_INF = float("-inf")
 
 class ShardedTensor:
     """A tensor split into m equal pieces along `axis` over the model
-    axis: `shards[i][j]` is piece j on `mesh.devices[i, j]`. A device
+    axis: `shards[i][j]` is piece j on `mesh.devices[i, j]`, placed only
+    where this process holds the slot (None elsewhere, as
+    `jax.make_array_from_callback` places a process's shards). A device
     that appears twice holds one copy of a piece."""
 
     def __init__(self, value: torch.Tensor, mesh: Mesh, axis: int = 0) -> None:
@@ -60,16 +67,23 @@ class ShardedTensor:
             row = []
             for j in range(num_model):
                 device = mesh.devices[i, j]
+                if not mesh.is_local(i, j):
+                    row.append(None)
+                    continue
                 if (device, j) not in placed:
                     placed[(device, j)] = pieces[j].to(device).contiguous()
                 row.append(placed[(device, j)])
             self.shards.append(row)
         self.shape = tuple(value.shape)
         self.axis = axis
+        self.group = mesh.group
 
     def full(self, device: torch.device) -> torch.Tensor:
-        """The whole tensor gathered onto `device`."""
-        return torch.cat([p.to(device) for p in self.shards[0]], dim=self.axis)
+        """The whole tensor gathered onto `device` (in every process)."""
+        gather = gather_rows if self.axis == 0 else gather_columns
+        return gather(
+            [p for p in self.shards[0] if p is not None], device, self.group
+        )
 
 
 def place_rows(corpus, mesh: Mesh) -> ShardedTensor:
@@ -97,11 +111,14 @@ def on_device(device: torch.device):
 def _query_spec(mesh: Mesh, batch: int, shard_queries: bool | None) -> int:
     """How many ways the query batch splits: over the data axis when
     requested, else 1 (replicated; only data row 0 computes). `None` =
-    auto: split whenever the data axis is nontrivial and divides the
-    batch (the mesh is always driven by one process here)."""
+    auto, the reference's rule: split whenever the data axis is
+    nontrivial and divides the batch and the mesh lies in one process
+    (multi-process callers opt in)."""
     data_size = mesh.shape.get(DATA_AXIS, 1)
     if shard_queries is None:
-        shard_queries = data_size > 1 and batch % data_size == 0
+        shard_queries = (
+            data_size > 1 and batch % data_size == 0 and mesh.process_count == 1
+        )
     if not shard_queries:
         return 1
     if batch % data_size:
@@ -137,11 +154,13 @@ def _gather_merge(
     local_pos: Sequence[torch.Tensor],
     k: int,
     device: torch.device,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gather the (B, local_k) shard candidates over the model axis onto
-    `device` and take the global top-k: the shared merge epilogue."""
-    all_vals = gather_columns(local_vals, device)
-    all_pos = gather_columns(local_pos, device)
+    `device` (over the row's process `group`) and take the global top-k:
+    the shared merge epilogue."""
+    all_vals = gather_columns(local_vals, device, group)
+    all_pos = gather_columns(local_pos, device, group)
     top_vals, merge_arg = tk.topk_stable(all_vals, k)
     return top_vals, torch.gather(all_pos, 1, merge_arg)
 
@@ -149,17 +168,28 @@ def _gather_merge(
 def _per_data_row(
     mesh: Mesh,
     parts: int,
+    outputs: int,
     fn: Callable[..., tuple[torch.Tensor, ...]],
     *row_inputs: torch.Tensor | None,
 ) -> tuple[torch.Tensor, ...]:
-    """Run `fn(i, *chunks)` for each data row i that holds queries (its
-    chunk of every row input; None passes through), then gather the
-    outputs' rows onto the mesh's lead device."""
+    """Run `fn(i, *chunks)` for each data row i that holds queries and a
+    slot of this process (its chunk of every row input; None passes
+    through), then gather the `outputs` outputs' rows onto the lead
+    device of every process (each row from the process that holds its
+    first slot)."""
     chunks = [
         [None] * parts if x is None else split_rows(x, parts) for x in row_inputs
     ]
-    outs = [fn(i, *(c[i] for c in chunks)) for i in range(parts)]
-    return tuple(gather_rows(list(col), mesh.lead) for col in zip(*outs))
+    outs = {
+        i: fn(i, *(c[i] for c in chunks))
+        for i in range(parts)
+        if mesh.holds_row(i)
+    }
+    mine = [out for i, out in outs.items() if mesh.owns_row(i)]
+    return tuple(
+        gather_rows([out[c] for out in mine], mesh.lead, mesh.group)
+        for c in range(outputs)
+    )
 
 
 def _pad_local(corpus: torch.Tensor, pad: int) -> torch.Tensor:
@@ -213,6 +243,8 @@ def sharded_topk(
     def row(i, q, excl):
         vals, poss = [], []
         for j in range(num_model):
+            if not mesh.is_local(i, j):
+                continue
             device = mesh.devices[i, j]
             local = corpus.shards[i][j]
             q32 = q.to(device).float()
@@ -241,9 +273,9 @@ def sharded_topk(
             top, arg = tk.topk_stable(scores, local_k)
             vals.append(top)
             poss.append((arg + offset).to(torch.int32))
-        return _gather_merge(vals, poss, k, mesh.devices[i, 0])
+        return _gather_merge(vals, poss, k, mesh.row_lead(i), mesh.row_group(i))
 
-    return _per_data_row(mesh, parts, row, queries, exclude_positions)
+    return _per_data_row(mesh, parts, 2, row, queries, exclude_positions)
 
 
 def _tiles(
@@ -303,6 +335,8 @@ def sharded_certified_topk(
     def row(i, q):
         vals, poss, dmaxes = [], [], []
         for j in range(num_model):
+            if not mesh.is_local(i, j):
+                continue
             device = mesh.devices[i, j]
             with on_device(device):
                 v, p, d = lane_max_scan(
@@ -321,13 +355,13 @@ def sharded_certified_topk(
             vals.append(top)
             poss.append(pos)
             dmaxes.append(d[:, 0])
-        lead = mesh.devices[i, 0]
-        top_scores, top_pos = _gather_merge(vals, poss, k, lead)
+        lead, group = mesh.row_lead(i), mesh.row_group(i)
+        top_scores, top_pos = _gather_merge(vals, poss, k, lead, group)
         tau = top_scores[:, k - 1]
         # <=: score-multiset exactness, the single-card convention
-        return top_scores, top_pos, pmax(dmaxes, lead) <= tau
+        return top_scores, top_pos, pmax(dmaxes, lead, group) <= tau
 
-    return _per_data_row(mesh, parts, row, queries)
+    return _per_data_row(mesh, parts, 3, row, queries)
 
 
 def _packed_geometry(local_n: int, ct: int) -> tuple[int, int, int]:
@@ -400,6 +434,8 @@ def sharded_packed_certified_topk(
     def row(i, q):
         keys, poss, dmaxes = [], [], []
         for j in range(num_model):
+            if not mesh.is_local(i, j):
+                continue
             device = mesh.devices[i, j]
             with on_device(device):
                 lk, lp, ld = tk.packed_certified_parts(
@@ -420,10 +456,12 @@ def sharded_packed_certified_topk(
             keys.append(_mask_pad_keys(lk, lp, true_num_items))
             poss.append(lp)
             dmaxes.append(ld)
-        lead = mesh.devices[i, 0]
-        top_keys, top_pos = _gather_merge(keys, poss, k, lead)
+        lead, group = mesh.row_lead(i), mesh.row_group(i)
+        top_keys, top_pos = _gather_merge(keys, poss, k, lead, group)
         tau = top_keys[:, k - 1]
-        exact = (pmax(dmaxes, lead) <= tau) & (tau > (1 << merge_levels) - 1)
+        exact = (pmax(dmaxes, lead, group) <= tau) & (
+            tau > (1 << merge_levels) - 1
+        )
         scores = tk.decode_scores(
             top_keys,
             idx_bits=idx_bits,
@@ -432,7 +470,7 @@ def sharded_packed_certified_topk(
         )
         return scores, top_pos, exact
 
-    return _per_data_row(mesh, parts, row, queries)
+    return _per_data_row(mesh, parts, 3, row, queries)
 
 
 def _guaranteed_retry_widths(
@@ -524,13 +562,15 @@ def sharded_packed_guaranteed_topk(
     scales = place_columns(scales, mesh)
 
     def row(i, q):
-        lead = mesh.devices[i, 0]
+        lead, group = mesh.row_lead(i), mesh.row_group(i)
 
         def sweep(qrows, shuffle, tile):
             """Every shard's sweep, merged: (pool keys, pool positions,
             max over shards of dmax), on the lead device."""
             keys, poss, dmaxes = [], [], []
             for j in range(num_model):
+                if not mesh.is_local(i, j):
+                    continue
                 device = mesh.devices[i, j]
                 with on_device(device):
                     lk, lp, ld = tk.packed_certified_parts(
@@ -555,9 +595,9 @@ def sharded_packed_guaranteed_topk(
                 poss.append(lp)
                 dmaxes.append(ld)
             return (
-                gather_columns(keys, lead),
-                gather_columns(poss, lead),
-                pmax(dmaxes, lead),
+                gather_columns(keys, lead, group),
+                gather_columns(poss, lead, group),
+                pmax(dmaxes, lead, group),
             )
 
         q = q.to(lead)
@@ -568,7 +608,8 @@ def sharded_packed_guaranteed_topk(
         exact = (gdmax <= tau) & (tau > min_real)
         for attempt in range(retries):
             # the reference skips the round on the device (lax.cond);
-            # eager PyTorch decides here, one sync a round
+            # eager PyTorch decides here, one sync a round (every process
+            # of the row decides alike: they hold one merged pool)
             failing = torch.nonzero(~exact).flatten()
             if failing.numel() == 0:
                 break
@@ -607,7 +648,7 @@ def sharded_packed_guaranteed_topk(
         )
         return scores, positions, exact
 
-    return _per_data_row(mesh, parts, row, queries)
+    return _per_data_row(mesh, parts, 3, row, queries)
 
 
 def sharded_packed_topk_excluding(
@@ -669,6 +710,8 @@ def sharded_packed_topk_excluding(
     def row(i, q, excl):
         keys, poss = [], []
         for j in range(num_model):
+            if not mesh.is_local(i, j):
+                continue
             device = mesh.devices[i, j]
             with on_device(device):
                 lk, lp, _ = tk.packed_certified_parts(
@@ -691,10 +734,10 @@ def sharded_packed_topk_excluding(
                 lp = lp + j * local_n
             keys.append(_mask_pad_keys(lk, lp, true_num_items))
             poss.append(lp)
-        lead = mesh.devices[i, 0]
+        lead, group = mesh.row_lead(i), mesh.row_group(i)
         # the whole merged pool: exclusions mask before the final top-k
-        all_keys = gather_columns(keys, lead)
-        all_pos = gather_columns(poss, lead)
+        all_keys = gather_columns(keys, lead, group)
+        all_pos = gather_columns(poss, lead, group)
         if excl is not None:
             hit = (all_pos[:, :, None] == excl.to(lead)[:, None, :]).any(dim=-1)
             all_keys = torch.where(hit, 0, all_keys)
@@ -711,4 +754,4 @@ def sharded_packed_topk_excluding(
         )
         return torch.where(real, scores, NEG_INF), top_pos
 
-    return _per_data_row(mesh, parts, row, queries, exclude_positions)
+    return _per_data_row(mesh, parts, 2, row, queries, exclude_positions)

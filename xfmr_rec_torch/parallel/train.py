@@ -19,12 +19,24 @@ keeps that contract with one controller:
 On one distinct device this is the single-device step exactly: the
 chunks of every tower form the same (3B, L) pass.
 
+On a mesh that spans processes every process runs this step on its own
+slots: one replica per local distinct device, the rows all-gathered over
+the group with autograd (every process computes the same loss on the
+global batch, and its backward reaches only its own rows), and the
+gradients all-reduced over the processes (one `sum_to`), so that every process
+holds the single-device gradient, runs the same AdamW step and keeps the
+same parameters bit for bit. Dropout on a replica other than the mesh's
+first draws from a generator seeded by (seed, step, replica), so a run
+resumed from a checkpoint draws what the uninterrupted run drew.
+
 `shard_vocab=True` splits the one tensor that dominates the parameter
 count, the (vocab, hidden) token-embedding table, row-wise into m pieces
 of ceil(vocab / m) rows (the last zero-padded), one per model-axis
 device. Each piece is its own parameter, so AdamW keeps its moments
 beside it, and the lookup is a masked local gather a piece, summed. The
-replicas share the pieces, so their gradients land there directly.
+replicas share the pieces, so their gradients land there directly. Over
+processes this needs each model row inside one process (the reference's
+layout at `model_parallel=2`): every process then holds all the pieces.
 """
 
 from __future__ import annotations
@@ -161,7 +173,14 @@ def place_state(
                 opt_state[key] = value.to(mesh.lead)
     if not shard_vocab:
         return state
-    devices = list(mesh.devices[0])
+    if any(len(set(row)) > 1 for row in mesh.owners.tolist()):
+        msg = (
+            "shard_vocab with the model axis across processes is not "
+            f"supported (mesh {mesh}); pick model_parallel so that each "
+            "model row lies inside one process"
+        )
+        raise NotImplementedError(msg)
+    devices = list(mesh.devices[mesh.local_slots()[0][0]])
     old = state.optimizer
     moved: dict[nn.Parameter, list[nn.Parameter]] = {}
     for parent, attr in _vocab_tables(state.model, config):
@@ -235,11 +254,12 @@ class ShardedTrainStep:
         self.log_all_losses = log_all_losses
         self._lead_model: nn.Module | None = None
         self._replicas: list[tuple[torch.device, nn.Module, torch.Generator]] = []
+        self._lead_generator: torch.Generator | None = None
 
     # -- replicas ------------------------------------------------------
     def _replicas_of(self, state: TrainState):
-        """(device, model, generator) a distinct mesh device, the lead
-        first; the other replicas get the lead's parameters."""
+        """(device, model, generator) a distinct device of this process,
+        its lead first; the other replicas get the lead's parameters."""
         if self._lead_model is not state.model:
             shared = {
                 id(m): m for m in state.model.modules() if isinstance(m, ShardedEmbed)
@@ -253,33 +273,67 @@ class ShardedTrainStep:
                 replica.to(device)
                 generator = torch.Generator(device=device).manual_seed(seed + k)
                 self._replicas.append((device, replica, generator))
+            self._lead_generator = state.generator
+            if self.mesh.rank:
+                self._lead_generator = torch.Generator(device=self.mesh.lead)
             self._lead_model = state.model
         lead = {name: p for name, p in state.model.named_parameters()}
         with torch.no_grad():
             for _, replica, _ in self._replicas:
                 for name, param in replica.named_parameters():
                     param.copy_(lead[name])
-        return [(self.mesh.lead, state.model, state.generator), *self._replicas]
+        return [(self.mesh.lead, state.model, self._lead_generator),
+                *self._replicas]
+
+    def _reseed(self, state: TrainState, replicas) -> None:
+        """Under a process group: every replica but the mesh's first
+        draws dropout from (seed, step, its index over the processes),
+        which a resumed run reproduces."""
+        seed = state.generator.initial_seed()
+        first = self._first_replica_index()
+        for k, (_, _, generator) in enumerate(replicas):
+            index = first + k
+            if index:
+                generator.manual_seed(
+                    (seed * 1_000_003 + state.step * 7_919 + index) % (1 << 63)
+                )
+
+    def _first_replica_index(self) -> int:
+        """How many distinct (process, device) replicas precede this
+        process's."""
+        owners = self.mesh.owners.reshape(-1).tolist()
+        seen = {
+            (owner, str(device))
+            for owner, device in zip(owners, self.mesh.flat(), strict=True)
+            if owner < self.mesh.rank
+        }
+        return len(seen)
 
     def _chunks_of(self, device: torch.device) -> list[int]:
-        return [i for i, d in enumerate(self.mesh.flat()) if d == device]
+        flat = self.mesh.flat()
+        return [i for i in self.mesh.local_indices() if flat[i] == device]
 
     # -- the step --------------------------------------------------------
     def __call__(
         self, state: TrainState, shards: Sequence[dict[str, torch.Tensor]]
     ) -> dict[str, torch.Tensor]:
         config = self.config
-        lead = self.mesh.lead
+        lead, group = self.mesh.lead, self.mesh.group
+        local = self.mesh.local_indices()
         names = None if self.log_all_losses else (config.train_loss,)
+        # every process holds the global batch (`shard_batch`)
         batch = {
-            key: gather_rows([s[key] for s in shards], lead) for key in shards[0]
+            key: gather_rows([shard[key] for shard in shards], lead)
+            for key in shards[0]
         }
         rows = batch["user_tokens"].shape[0]
         chunk = rows // len(shards)
         replicas = self._replicas_of(state)
+        if group is not None:
+            self._reseed(state, replicas)
         lr = train_mod.learning_rate_at(config, state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
+        for param_group in state.optimizer.param_groups:
+            param_group["lr"] = lr
         state.optimizer.zero_grad(set_to_none=True)
         for _, replica, _ in replicas[1:]:
             replica.zero_grad(set_to_none=True)
@@ -292,7 +346,7 @@ class ShardedTrainStep:
                 key: torch.cat([shards[i][key] for i in mine])
                 for key in ("user_tokens", "item_tokens", "neg_item_tokens",
                             *_ROW_INPUTS)
-                if key in shards[0]
+                if key in shards[local[0]]
             }
             index = torch.cat([
                 torch.arange(i * chunk, (i + 1) * chunk, device=lead) for i in mine
@@ -306,8 +360,11 @@ class ShardedTrainStep:
                 users[i] = u[piece]
                 pos[i] = it[:n][piece]
                 neg[i] = it[n:][piece]
-        user_embed = gather_rows(users, lead)
-        item_embed = torch.cat([gather_rows(pos, lead), gather_rows(neg, lead)])
+        user_embed = gather_rows([users[i] for i in local], lead, group)
+        item_embed = torch.cat([
+            gather_rows([pos[i] for i in local], lead, group),
+            gather_rows([neg[i] for i in local], lead, group),
+        ])
         losses = compute_losses(
             user_embed,
             item_embed,
@@ -331,6 +388,17 @@ class ShardedTrainStep:
         for param in params:
             if param.grad is None:
                 param.grad = torch.zeros_like(param)
+        if group is not None:
+            # one all-reduce of every gradient, flattened
+            total = sum_to(
+                [torch.cat([p.grad.reshape(-1).to(lead) for p in params])],
+                lead,
+                group,
+            )
+            for param, grad in zip(
+                params, torch.split(total, [p.numel() for p in params]), strict=True
+            ):
+                param.grad = grad.view_as(param).to(param.device)
         grad_norm = train_mod.global_norm([param.grad for param in params])
         state.optimizer.step()
         state.step += 1
@@ -369,6 +437,7 @@ class ShardedTrainStep:
         rows pad the batch to the mesh size), each device's chunks in one
         call, gathered to the lead in row order."""
         size = self.mesh.size
+        local = self.mesh.local_indices()
         count = rows[0].shape[0]
         pad = -count % size
         if pad:
@@ -384,7 +453,7 @@ class ShardedTrainStep:
             out = fn(replica, *part).to(self.mesh.lead)
             for slot, i in enumerate(mine):
                 outs[i] = out[slot * chunk : (slot + 1) * chunk]
-        out = gather_rows(outs, self.mesh.lead)
+        out = gather_rows([outs[i] for i in local], self.mesh.lead, self.mesh.group)
         return out[:count]
 
 

@@ -38,7 +38,11 @@ under it.
 (`index/sharded.py`) over `mesh`, by default every visible card with
 `model_parallel` of them (default all) on the model axis. Searches,
 the micro-batcher's included, go through it (`search_vectors`); it
-snapshots the corpus too, so `add_items` is refused.
+snapshots the corpus too, so `add_items` is refused. Under a process
+group the default mesh spans every process (this engine's device in
+each); every process then loads the engine and calls each request's
+handler in the same order (the reference's multi-host serving worker),
+and each returns the same answer.
 """
 
 from __future__ import annotations
@@ -70,7 +74,12 @@ from xfmr_rec_torch.models.tokenizer import (
     TokenizerConfig,
     VocabTokenizer,
 )
-from xfmr_rec_torch.parallel.mesh import Mesh, create_mesh
+from xfmr_rec_torch.parallel.mesh import (
+    Mesh,
+    create_mesh,
+    is_distributed,
+    process_count,
+)
 from xfmr_rec_torch.params import (
     CF_NPZ,
     ENCODER_MSGPACK,
@@ -206,7 +215,14 @@ class RecommenderEngine:
     def _default_mesh(self, model_parallel: int | None) -> Mesh:
         """The sharded index's mesh: every visible card, `model_parallel`
         of them (default all) on the model axis; on the CPU, a virtual
-        mesh of `model_parallel` (default 1) CPU devices."""
+        mesh of `model_parallel` (default 1) CPU devices. Under a process
+        group, this engine's device in every process, `model_parallel`
+        (default all) on the model axis."""
+        if is_distributed():
+            return create_mesh(
+                model_parallel=model_parallel or process_count(),
+                devices=[self.device],
+            )
         if self.device.type == "cuda":
             return create_mesh(
                 model_parallel=model_parallel or torch.cuda.device_count()

@@ -43,6 +43,14 @@ axis. A step is the single-device step over the global batch
 in chunks padded to the mesh size; with `model_parallel > 1` the eval
 corpus is split over the model axis and searched by `sharded_topk`, its
 shard-balancing rows excluded.
+
+Many processes: after `parallel.initialize_distributed` the mesh spans
+every process (by default on, each process giving its pinned device or
+`devices=`), and `batch_size` must divide by the global mesh size. Every
+process runs the same program on the same data: its own slots' rows, the
+same summed gradients and parameters. Only the first process writes
+checkpoints, the artifact, predictions and the metrics log, the others
+waiting at a barrier; `restore_checkpoint` runs in every process.
 """
 
 from __future__ import annotations
@@ -65,7 +73,15 @@ from xfmr_rec_torch.index.mips import RetrievalIndex
 from xfmr_rec_torch.models.cf import factorize_item_cf
 from xfmr_rec_torch.models.convert import write_msgpack, write_portable
 from xfmr_rec_torch.models.encoder import needs_two_tower, uses_item_ids
-from xfmr_rec_torch.parallel.mesh import Mesh, create_mesh, shard_batch
+from xfmr_rec_torch.parallel.mesh import (
+    Mesh,
+    any_process,
+    barrier,
+    create_mesh,
+    is_distributed,
+    process_index,
+    shard_batch,
+)
 from xfmr_rec_torch.parallel.retrieval import place_rows, sharded_topk
 from xfmr_rec_torch.parallel.train import (
     gathered_state_dict,
@@ -140,13 +156,21 @@ class Trainer:
         self.device = resolve_device(device)
         if devices is not None:
             visible = [resolve_device(d) for d in devices]
+        elif is_distributed():
+            # this process's own slot: its pinned card, or the device given
+            visible = [self.device]
+            if self.device.type == "cuda" and self.device.index is None:
+                visible = [torch.device("cuda", torch.cuda.current_device())]
         elif self.device.type == "cuda" and self.device.index is None:
             visible = [
                 torch.device("cuda", i) for i in range(torch.cuda.device_count())
             ]
         else:
             visible = [self.device]
-        use_mesh = tc.mesh if tc.mesh is not None else len(visible) > 1
+        use_mesh = (
+            tc.mesh if tc.mesh is not None
+            else len(visible) > 1 or is_distributed()
+        )
         self.mesh: Mesh | None = None
         if use_mesh:
             self.mesh = create_mesh(
@@ -171,7 +195,11 @@ class Trainer:
         run_name = self.trainer_config.run_name or time.strftime(
             "%Y%m%d-%H%M%S"
         )
-        self.logger = MetricsLogger(self.trainer_config.log_dir, run_name)
+        # the first process writes (all compute the same metrics)
+        self._writer = process_index() == 0
+        self.logger = MetricsLogger(
+            self.trainer_config.log_dir, run_name, write=self._writer
+        )
         self.state: TrainState | None = None
         self.best_metric = -np.inf
         self._bad_checks = 0
@@ -331,9 +359,8 @@ class Trainer:
                     if tc.max_steps and self.global_step >= tc.max_steps:
                         stop = True
                         break
-                    if (
-                        tc.max_time_s
-                        and time.time() - fit_start > tc.max_time_s
+                    if tc.max_time_s and self._agree(
+                        time.time() - fit_start > tc.max_time_s
                     ):
                         logger.info("max_time_s reached; stopping")
                         stop = True
@@ -351,6 +378,11 @@ class Trainer:
             last_val = self.validate()
             self._early_stop_check(last_val)
         return last_val
+
+    def _agree(self, flag: bool) -> bool:
+        """A host-side decision every process of the mesh takes alike
+        (any process's True)."""
+        return any_process(flag, self.mesh) if self.mesh is not None else flag
 
     def _early_stop_check(self, val_metrics: dict[str, float]) -> bool:
         """Best-metric checkpointing + early stopping (monitor = METRIC)."""
@@ -654,7 +686,7 @@ class Trainer:
             "rec_scores": np.concatenate(rec_scores) if rec_scores
             else np.zeros((0, top_k), np.float32),
         }
-        if output_path is not None:
+        if output_path is not None and self._writer:
             output_path = pathlib.Path(output_path)
             output_path.parent.mkdir(parents=True, exist_ok=True)
             with output_path.open("wb") as f:
@@ -664,6 +696,8 @@ class Trainer:
                 len(out["user_id"]),
                 output_path,
             )
+        if output_path is not None:
+            barrier()
         return out
 
     def embed_texts(self, texts: list[str]) -> torch.Tensor:
@@ -740,20 +774,24 @@ class Trainer:
         return pathlib.Path(base).absolute() / name
 
     def save_checkpoint(self, name: str = "last") -> None:
-        path = self._ckpt_path(name)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(path.name + ".tmp")
-        torch.save(
-            {
-                "params": self.state.model.state_dict(),
-                "opt_state": self.state.optimizer.state_dict(),
-                "step": self.state.step,
-                "best_metric": float(self.best_metric),
-                "dropout_generator": self.state.generator.get_state(),
-            },
-            tmp,
-        )
-        os.replace(tmp, path)
+        """Write the training state (in every process of a group the
+        state is the same: the first writes, the others wait)."""
+        if self._writer:
+            path = self._ckpt_path(name)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_name(path.name + ".tmp")
+            torch.save(
+                {
+                    "params": self.state.model.state_dict(),
+                    "opt_state": self.state.optimizer.state_dict(),
+                    "step": self.state.step,
+                    "best_metric": float(self.best_metric),
+                    "dropout_generator": self.state.generator.get_state(),
+                },
+                tmp,
+            )
+            os.replace(tmp, path)
+        barrier()
 
     def restore_checkpoint(self, name: str = "last") -> None:
         self.setup()
@@ -768,9 +806,16 @@ class Trainer:
 
     def save(self, path: str | pathlib.Path) -> None:
         """Write the deployable serving artifact (encoder + index +
-        config); see the module docstring for the files."""
+        config); see the module docstring for the files. In a process
+        group every process calls it, the first writes."""
         self.setup()
-        path = pathlib.Path(path)
+        if self.index is None:
+            self.build_index()
+        if self._writer:
+            self._write_artifact(pathlib.Path(path))
+        barrier()
+
+    def _write_artifact(self, path: pathlib.Path) -> None:
         path.mkdir(parents=True, exist_ok=True)
         model_dump = dataclasses.asdict(self.config)
         data_dump = dataclasses.asdict(self.data.config)
@@ -785,8 +830,6 @@ class Trainer:
                 indent=2,
             )
         )
-        if self.index is None:
-            self.build_index()
         self.index.save(path / INDEX_DIR)
         if hasattr(self.data.tokenizer, "vocab"):
             self.data.tokenizer.save(path / VOCAB_JSON)

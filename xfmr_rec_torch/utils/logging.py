@@ -16,20 +16,30 @@ from typing import Any
 
 
 class MetricsLogger:
+    """`write=False` keeps the paths and writes nothing (a process other
+    than the first of a process group)."""
+
     def __init__(
-        self, log_dir: str | pathlib.Path, run_name: str = "run"
+        self, log_dir: str | pathlib.Path, run_name: str = "run", *,
+        write: bool = True,
     ) -> None:
         self.log_dir = pathlib.Path(log_dir) / run_name
-        self.log_dir.mkdir(parents=True, exist_ok=True)
-        self._jsonl = (self.log_dir / "metrics.jsonl").open("a")
+        self._jsonl = None
+        if write:
+            self.log_dir.mkdir(parents=True, exist_ok=True)
+            self._jsonl = (self.log_dir / "metrics.jsonl").open("a")
         self._start = time.time()
 
     def log_hyperparams(self, params: dict[str, Any]) -> None:
+        if self._jsonl is None:
+            return
         (self.log_dir / "config.json").write_text(
             json.dumps(params, indent=2, default=str)
         )
 
     def log_metrics(self, metrics: dict[str, Any], step: int) -> None:
+        if self._jsonl is None:
+            return
         record = {
             "step": step,
             "time": round(time.time() - self._start, 3),
@@ -39,4 +49,5 @@ class MetricsLogger:
         self._jsonl.flush()
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
