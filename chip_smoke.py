@@ -120,7 +120,16 @@ printing no result, when there is no card or any phase fails. Phases:
    within `MP_BF16_STEP1_RTOL`, the step's ms beside one device's; (d) the
    checkpoint cycle through `Trainer(mesh=True)`: 2 steps,
    `save_checkpoint` (process 0 writes), step 3; in a fresh group,
-   restore and step 3: the same loss and parameters bit for bit. Both
+   restore and step 3: the same loss and parameters bit for bit; (e)
+   `runs/ml1m-logistic-384/config.json` at full width and depth (vocab
+   30522, hidden 384, 12 heads, intermediate 1536, 3 layers) with
+   `shard_vocab` on a 1 x 4 mesh, so the token table's model row crosses
+   the processes (two pieces each): 3 f32 steps against 3 single-device
+   steps (every metric, the gradient norm included, and the parameters
+   within 5e-5), bf16 step 1 within `MP_BF16_STEP1_RTOL`, the step's ms
+   beside one device's; (d)'s cycle for it (dropout on); then
+   `Trainer.fit` of 4 steps with one validation through `sharded_topk`
+   and `save`, whose table is the gathered pieces. Both
    processes' answers, parameters and states are the same bits;
 13. (run last) tuning and the recommend surface on phase 9's 2^17-item
    catalogue, so every validation and search runs kernel 1: (a) `tune`
@@ -3457,13 +3466,37 @@ MP_SLOTS = 2  # mesh slots a process (four in all, as phase 12's mesh)
 MP_BATCHES = 2  # B=4096 batches a path a mesh, the first a warm-up
 MP_REQUESTS = 64
 MP_STEPS = 3
-MP_TIMEOUT_S = 300  # a worker's wall, its start included
+MP_TIMEOUT_S = 420  # a worker's wall, its start included
 MP_LOOSE = 1e-2  # a served score against the exact engine's (phase 12's)
 # step 1 of the bf16 step over the processes against one device's, before
 # Adam amplifies the rounding of half-batch passes: every metric (losses
 # and the gradient norm) within this gap, relative (absolute below 1; the
 # H100 readings behind it are in PERF.md)
 MP_BF16_STEP1_RTOL = 1e-4
+# (e): the token table split over a (1, 4) mesh across the processes, at
+# the width of this published config (its full depth, 3 layers)
+WIDE_CONFIG = pathlib.Path(__file__).resolve().parent / "runs" / \
+    "ml1m-logistic-384" / "config.json"
+VOCAB_MODEL_PARALLEL = 4
+VOCAB_FIT_STEPS = 4
+# (e) f32 against one device: at this width any split of the batch over
+# replicas (the whole table's 4 x 1 process mesh too) parts from one
+# device's parameters by about 2 * lr somewhere, since among its millions
+# of table components a few gradients lie within rounding of zero and
+# Adam's first steps are sign steps of size lr (an H100 read 5.589e-04 for
+# both, lr 5e-4, and the two meshes the same bits: PERF.md). So
+# the split table is held bit for bit to the whole table's process mesh,
+# and to one device only within the farthest two Adam runs part in 3
+# steps, 2 * lr a step
+VOCAB_PARAM_STEPS = 2 * MP_STEPS
+# the split table's gradient norm against the whole table's, relative
+VOCAB_NORM_RTOL = 1e-6
+
+
+def wide_config(**overrides) -> train_mod.TrainConfig:
+    """The model section of `WIDE_CONFIG`, with `overrides`."""
+    model = json.loads(WIDE_CONFIG.read_text())["model"]
+    return train_mod.TrainConfig(**dict(model, **overrides))
 
 
 def mp_corpus(dev) -> torch.Tensor:
@@ -3594,6 +3627,29 @@ def mp_serve(dev, rank: int, spec: dict, card: str, say) -> dict:
             "wall_s": wall}
 
 
+def held_to_one_device(got: list, want: list, dtype: str,
+                       what: str) -> tuple[float, float]:
+    """A process mesh's per-step metrics against one device's: in f32
+    each within 1e-5 + 1e-4 relative; in bf16 step 1 within
+    `MP_BF16_STEP1_RTOL`. Returns (the largest relative gap, absolute
+    below 1; step 1's in bf16)."""
+    worst, step1 = 0.0, 0.0
+    for index, (metrics, one) in enumerate(zip(got, want, strict=True)):
+        for key, value in one.items():
+            diff = abs(float(metrics[key]) - float(value))
+            gap = diff / max(abs(float(value)), 1)
+            worst = max(worst, gap)
+            if dtype == "float32":
+                check(diff <= 1e-5 + 1e-4 * abs(float(value)),
+                      f"{what} step {key}: {float(metrics[key])} vs "
+                      f"{float(value)}")
+            elif index == 0:
+                step1 = max(step1, gap)
+    check(step1 <= MP_BF16_STEP1_RTOL,
+          f"{what} step 1: the metrics differ by {step1:.3e} relative")
+    return worst, step1
+
+
 def mp_train(dev, rank: int, spec: dict, card: str, say) -> dict:
     """(c) the reference config, then the flagship history tower, both in
     f32: 3 steps on a 4 x 1 mesh over the processes against 3
@@ -3622,20 +3678,8 @@ def mp_train(dev, rank: int, spec: dict, card: str, say) -> dict:
         mesh = create_mesh(model_parallel=1, devices=[dev] * MP_SLOTS)
         place_state(state, mesh, config)
         step = make_sharded_train_step(config, mesh, state=state)
-        worst_loss, step1 = 0.0, 0.0
-        for index, (batch, one) in enumerate(zip(batches, want, strict=True)):
-            got = step(state, shard_batch(batch, mesh))
-            for key, value in one.items():
-                diff = abs(float(got[key]) - float(value))
-                worst_loss = max(worst_loss, diff / max(abs(float(value)), 1))
-                if dtype == "float32":
-                    check(diff <= 1e-5 + 1e-4 * abs(float(value)),
-                          f"{name} step {key}: {float(got[key])} vs "
-                          f"{float(value)}")
-                elif index == 0:
-                    step1 = max(step1, diff / max(abs(float(value)), 1))
-        check(step1 <= MP_BF16_STEP1_RTOL,
-              f"{name} step 1: the metrics differ by {step1:.3e} relative")
+        got = [step(state, shard_batch(b, mesh)) for b in batches]
+        worst_loss, step1 = held_to_one_device(got, want, dtype, name)
         params = gathered_state_dict(state.model)
         theirs = single.model.state_dict()
         worst = max((params[n] - v).abs().max().item()
@@ -3661,41 +3705,190 @@ def mp_train(dev, rank: int, spec: dict, card: str, say) -> dict:
     return out
 
 
+def mp_vocab(dev, rank: int, spec: dict, card: str, say) -> dict:
+    """(e) `WIDE_CONFIG` (vocab 30522, hidden 384) with `shard_vocab` on a
+    1 x 4 mesh over the processes, so each holds two of the table's four
+    pieces and a lookup sums over the group. In f32 (dropout off), 3
+    steps: every metric, the gradient norm included, against 3
+    single-device steps as (c) holds them; the parameters bit for bit
+    those of (c)'s path, the table whole on a 4 x 1 mesh over the
+    processes (the same split of the batch: so the split lookup changes
+    nothing); against one device within `VOCAB_PARAM_STEPS` (see there).
+    In bf16, step 1 within `MP_BF16_STEP1_RTOL`. The step's ms beside one
+    device's. Then `Trainer.fit` for `VOCAB_FIT_STEPS` steps with one
+    validation through `sharded_topk`, and `save`, whose table must be
+    the gathered pieces."""
+    from xfmr_rec_torch.models.convert import read_msgpack
+    from xfmr_rec_torch.parallel import make_sharded_train_step, shard_batch
+    from xfmr_rec_torch.parallel.mesh import create_mesh
+    from xfmr_rec_torch.parallel.train import (
+        ShardedEmbed,
+        gathered_state_dict,
+        place_state,
+    )
+
+    # the reference config's batches: the same data section (batch 32,
+    # 64 tokens, the 30522-id hashing tokenizer)
+    batches = torch.load(spec["batches"], weights_only=False)["reference"]
+
+    def mesh_steps(config, model_parallel: int, shard_vocab: bool):
+        state = train_mod.TrainState(config, seed=SEED, device=dev)
+        mesh = create_mesh(model_parallel=model_parallel,
+                           devices=[dev] * MP_SLOTS)
+        place_state(state, mesh, config, shard_vocab=shard_vocab)
+        step = make_sharded_train_step(config, mesh, shard_vocab=shard_vocab,
+                                       state=state)
+        metrics = [step(state, shard_batch(b, mesh)) for b in batches]
+        return state, mesh, step, metrics
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        config = wide_config(dropout_rate=0.0, compute_dtype=dtype)
+        single = train_mod.TrainState(config, seed=SEED, device=dev)
+        want = [train_mod.train_step(single, train_mod.batch_to_device(b, dev))
+                for b in batches]
+        state, mesh, step, got = mesh_steps(config, VOCAB_MODEL_PARALLEL, True)
+        table = state.model.word_embed
+        check(isinstance(table, ShardedEmbed) and table.group is not None
+              and len(table.pieces) == MP_SLOTS,
+              f"(e): this process does not hold {MP_SLOTS} of the pieces")
+        worst_loss, step1 = held_to_one_device(got, want, dtype, f"(e) {dtype}")
+        params = gathered_state_dict(state.model)
+        theirs = single.model.state_dict()
+        check(params.keys() == theirs.keys(), "(e): the gathered keys differ")
+        worst = max((params[n] - v).abs().max().item()
+                    for n, v in theirs.items())
+        held = ""
+        if dtype == "float32":
+            whole, _, _, plain = mesh_steps(config, 1, False)
+            ref = whole.model.state_dict()
+            gap = max((params[n] - v).abs().max().item() for n, v in ref.items())
+            norm = "train/grad_norm"
+            norm_gap = max(abs(float(a[norm]) / float(b[norm]) - 1)
+                           for a, b in zip(got, plain, strict=True))
+            losses_same = all(torch.equal(a[k], b[k]) for a, b in zip(got, plain)
+                              for k in a if k != norm)
+            # the norm sums the distinct rows' gradient, not the whole
+            # table's: another reduction order
+            check(gap == 0 and losses_same and norm_gap <= VOCAB_NORM_RTOL,
+                  f"(e): the split table's steps are not those of the whole "
+                  f"table on a 4x1 process mesh (parameters {gap:.3e} apart, "
+                  f"losses the same bits: {losses_same}, gradient norm "
+                  f"{norm_gap:.3e} relative)")
+            plain_worst = max((v - theirs[n]).abs().max().item()
+                              for n, v in ref.items())
+            bound = VOCAB_PARAM_STEPS * config.learning_rate
+            check(worst <= bound, f"(e): the split table's parameters differ "
+                  f"from one device's by {worst} (bound {bound})")
+            held = (f"the parameters and losses == the whole table's on a "
+                    f"4x1 process mesh, bit for bit, the gradient norm within "
+                    f"{norm_gap:.3e} relative (the whole table's parameters "
+                    f"lie {plain_worst:.3e} from one device's); ")
+            del whole, plain
+        else:
+            held = (f"step 1's losses and gradient norm within {step1:.3e} "
+                    f"(bound {MP_BF16_STEP1_RTOL}); over the {MP_STEPS} ")
+        first = shard_batch(batches[0], mesh)
+        mesh_ms = cuda_ms(lambda: step(state, first), iters=10, warmup=2)
+        one = train_mod.batch_to_device(batches[0], dev)
+        one_ms = cuda_ms(lambda: train_mod.train_step(single, one), iters=10,
+                         warmup=2)
+        say(f"(e) {WIDE_CONFIG.parent.name} ({dtype}) with shard_vocab on a "
+            f"1x{VOCAB_MODEL_PARALLEL} mesh across the processes (pieces "
+            f"{table.columns} here): {MP_STEPS} steps (dropout off) against "
+            f"the single-device steps: {held}losses and gradient norm within "
+            f"{worst_loss:.3e} relative, parameters within {worst:.3e}; a "
+            f"step at batch {len(batches[0]['target'])}: {mesh_ms:.3f} ms "
+            f"against {one_ms:.3f} ms on one device (CUDA events) [{card}]")
+        out[dtype] = {"params": digest(*(params[n] for n in sorted(params))),
+                      "ms": mesh_ms, "single_ms": one_ms, "worst": worst,
+                      "step1": step1, "losses": worst_loss}
+        del state, single
+    root = pathlib.Path(spec["root"])
+    t0 = time.perf_counter()
+    trainer = Trainer(
+        wide_config(),
+        data=RecDataModule(DataConfig(data_dir=str(root / "ckpt_data"))),
+        trainer_config=TrainerConfig(
+            mesh=True, model_parallel=VOCAB_MODEL_PARALLEL, shard_vocab=True,
+            max_steps=VOCAB_FIT_STEPS, limit_val_batches=2,
+            limit_val_loss_batches=2, checkpointing=False,
+            log_dir=str(root / "runs"), run_name="mp_vocab_fit", seed=SEED),
+        device=dev, devices=[dev] * MP_SLOTS)
+    val = trainer.fit()
+    check(trainer.global_step == VOCAB_FIT_STEPS, "(e): the fit stopped early")
+    check(trainer._sharded_corpus is not None, "(e): the eval corpus is whole")
+    retrieval = {k: v for k, v in val.items() if "/Retrieval" in k}
+    check(len(retrieval) == 6 and all(0.0 <= v <= 1.0
+                                      for v in retrieval.values()),
+          f"(e) fit metrics out of range: {val}")
+    check(all(math.isfinite(v) for v in val.values()), "(e) fit: not finite")
+    trainer.save(root / "vocab_artifact")
+    whole = gathered_state_dict(trainer.state.model)["word_embed.embedding"]
+    saved = read_msgpack(root / "vocab_artifact" / "encoder.msgpack")
+    table = {torch_name(k): v for k, v in saved.items()}["word_embed.embedding"]
+    check(torch.equal(torch.from_numpy(table), whole.cpu()),
+          "(e): the artifact's table is not the gathered pieces")
+    fit_s = time.perf_counter() - t0
+    say(f"(e) Trainer.fit(mesh=True, model_parallel={VOCAB_MODEL_PARALLEL}, "
+        f"shard_vocab=True): {VOCAB_FIT_STEPS} steps, one validation "
+        f"through sharded_topk and save in {fit_s:.2f} s host wall; "
+        f"val/RetrievalNormalizedDCG {val['val/RetrievalNormalizedDCG']:.4f}; "
+        f"the artifact's {tuple(whole.shape)} table == the gathered pieces "
+        f"[{card}]")
+    out["fit"] = {"table": digest(whole), "ndcg": val["val/RetrievalNormalizedDCG"]}
+    return out
+
+
 def mp_checkpoint(dev, rank: int, spec: dict, phase: str, say) -> dict:
     """(d) the reference config (dropout on) through `Trainer(mesh=True)`
-    over the processes. Group A: 2 steps, `save_checkpoint` (the first
-    process writes), step 3. Group B, fresh: restore, step 3."""
+    over the processes; (e) `WIDE_CONFIG` (dropout on, as published) with
+    `shard_vocab` on a 1 x 4 mesh across them. Group A: 2 steps,
+    `save_checkpoint` (the first process writes), step 3. Group B, fresh:
+    restore, step 3."""
     from xfmr_rec_torch.parallel.train import gathered_state_dict
 
     root = pathlib.Path(spec["root"])
-    trainer = Trainer(
-        train_mod.TrainConfig(),
-        data=RecDataModule(DataConfig(data_dir=str(root / "ckpt_data"))),
-        trainer_config=TrainerConfig(
-            mesh=True, model_parallel=2, log_dir=str(root / "runs"),
-            run_name="mp_ckpt", ckpt_dir=str(root / "ckpt"), seed=SEED),
-        device=dev, devices=[dev] * MP_SLOTS)
-    trainer.setup()
-    batches = [b for _, b in zip(range(3), trainer.data.train_batches(0))]
-    if phase == "a":
-        for batch in batches[:2]:
-            trainer.train_step(batch)
-        trainer.save_checkpoint("step2")
-    else:
-        trainer.restore_checkpoint("step2")
-        check(trainer.global_step == 2, "the restored step is not 2")
-    loss = float(trainer.train_step(batches[2])["train/PairwiseHingeLoss"])
-    check(math.isfinite(loss), "the step-3 loss is not finite")
-    params = gathered_state_dict(trainer.state.model)
-    say(f"(d) group {phase.upper()}: step 3 loss {loss!r} on a "
-        f"{trainer.mesh.shape} mesh over the processes")
-    return {"loss": loss.hex(),
-            "params": digest(*(params[n] for n in sorted(params)))}
+    out = {}
+    for tag, config, model_parallel, shard_vocab in (
+            ("(d)", train_mod.TrainConfig(), 2, False),
+            ("(e)", wide_config(), VOCAB_MODEL_PARALLEL, True)):
+        trainer = Trainer(
+            config,
+            data=RecDataModule(DataConfig(data_dir=str(root / "ckpt_data"))),
+            trainer_config=TrainerConfig(
+                mesh=True, model_parallel=model_parallel,
+                shard_vocab=shard_vocab, log_dir=str(root / "runs"),
+                run_name="mp_ckpt", seed=SEED,
+                ckpt_dir=str(root / ("ckpt_vocab" if shard_vocab else "ckpt"))),
+            device=dev, devices=[dev] * MP_SLOTS)
+        trainer.setup()
+        batches = [b for _, b in zip(range(3), trainer.data.train_batches(0))]
+        if phase == "a":
+            for batch in batches[:2]:
+                trainer.train_step(batch)
+            trainer.save_checkpoint("step2")
+        else:
+            trainer.restore_checkpoint("step2")
+            check(trainer.global_step == 2, f"{tag}: the restored step is not 2")
+        metrics = trainer.train_step(batches[2])
+        loss = float(metrics[f"train/{config.train_loss}"])
+        check(math.isfinite(loss), f"{tag}: the step-3 loss is not finite")
+        params = gathered_state_dict(trainer.state.model)
+        say(f"{tag} group {phase.upper()}: step 3 loss {loss!r} on a "
+            f"{trainer.mesh.shape} mesh over the processes"
+            + (" (shard_vocab)" if shard_vocab else ""))
+        out[tag] = {
+            "loss": loss.hex(),
+            "grad_norm": float(metrics["train/grad_norm"]).hex(),
+            "params": digest(*(params[n] for n in sorted(params))),
+        }
+    return out
 
 
 def worker_main(argv: list[str]) -> int:
     """One process of phase 14 (`chip_smoke.py --worker <rank> <spec>`):
-    joins the group, runs (a)-(d), writes `worker_<rank>.json`. Prints
+    joins the group, runs (a)-(e), writes `worker_<rank>.json`. Prints
     no result line."""
     from xfmr_rec_torch.parallel.mesh import (
         describe_transport,
@@ -3732,6 +3925,9 @@ def worker_main(argv: list[str]) -> int:
         result["search_s"] = time.perf_counter() - t0
         result["serve"] = mp_serve(dev, rank, spec, card, say)
         result["train"] = mp_train(dev, rank, spec, card, say)
+        t0 = time.perf_counter()
+        result["vocab"] = mp_vocab(dev, rank, spec, card, say)
+        result["vocab_s"] = time.perf_counter() - t0
         result["ckpt_a"] = mp_checkpoint(dev, rank, spec, "a", say)
         shutdown_distributed()
         initialize_distributed(spec["init"][1], MP_WORLD, rank,
@@ -3788,6 +3984,8 @@ def mp_answers(result: dict) -> dict:
     out["serve"] = result["serve"]["answers"]
     out.update({f"train {name}": part["params"]
                 for name, part in result["train"].items()})
+    out.update({f"vocab {name}": part["params"] if "params" in part
+                else part["table"] for name, part in result["vocab"].items()})
     return out
 
 
@@ -3795,7 +3993,7 @@ def phase_multiprocess(dev, card: str, guaranteed: dict, mesh: dict,
                        serve_root: pathlib.Path, train_root: pathlib.Path,
                        lib_path: pathlib.Path) -> dict:
     """Phase 14: two processes on the card (two mesh slots each) joined by
-    `initialize_distributed`, (a)-(d) in each (`worker_main`); their
+    `initialize_distributed`, (a)-(e) in each (`worker_main`); their
     answers the same bits, their launches added up."""
     t_phase = time.perf_counter()
     root = train_root / "multiprocess"
@@ -3838,10 +4036,10 @@ def phase_multiprocess(dev, card: str, guaranteed: dict, mesh: dict,
               "answers differ")
     for result in results:
         check(result["ckpt_a"] == result["ckpt_b"],
-              f"phase 14 (d): process {result['rank']}'s resumed step 3 is "
-              "not the uninterrupted one, bit for bit")
+              f"phase 14 (d), (e): process {result['rank']}'s resumed step 3 "
+              "is not the uninterrupted one, bit for bit")
     check(first["ckpt_a"] == second["ckpt_a"],
-          "phase 14 (d): the processes' step-3 states differ")
+          "phase 14 (d), (e): the processes' step-3 states differ")
     launches = {name: sum(r["launches"][name] for r in results)
                 for name in kernels.LAUNCHES}
     print(f"multi-process: {MP_WORLD} processes x {MP_SLOTS} slots on "
@@ -3869,10 +4067,18 @@ def phase_multiprocess(dev, card: str, guaranteed: dict, mesh: dict,
         print(f"{MP_WORLD}-process step of the {name} config at batch 32: "
               f"{part['ms']:.3f} ms against {part['single_ms']:.3f} ms on "
               f"one device (CUDA events, process 0) [{card}]")
+    for dtype in ("float32", "bfloat16"):
+        part = first["vocab"][dtype]
+        print(f"{MP_WORLD}-process shard_vocab step of {WIDE_CONFIG.parent.name}"
+              f" ({dtype}) at batch 32 on a 1x{VOCAB_MODEL_PARALLEL} mesh "
+              f"across the processes: {part['ms']:.3f} ms against "
+              f"{part['single_ms']:.3f} ms on one device (CUDA events, "
+              f"process 0); parameters within {part['worst']:.3e} of one "
+              f"device's after {MP_STEPS} steps [{card}]")
     phase_s = time.perf_counter() - t_phase
     print(f"phase 14: {phase_s:.1f} s ({setup_s:.1f} s of it the inputs; "
           f"workers {first['wall_s']:.1f} / {second['wall_s']:.1f} s, "
-          f"(a) {first['search_s']:.1f} s)")
+          f"(a) {first['search_s']:.1f} s, (e) {first['vocab_s']:.1f} s)")
     return {"launches": launches}
 
 

@@ -13,8 +13,16 @@ up after a minute. Dropout is off except in the checkpoint cycle.
   parameters are the same bits, and within 5e-5 of the single-process
   steps and of the reference's `make_sharded_train_step`; the text tower
   in bf16: the same bits in both, step 1 within 1e-4 of the
-  single-process mesh; `shard_vocab` with the model axis across the
-  processes is refused.
+  single-process mesh.
+- `shard_vocab` with a model row across the processes: (1, 8) over the
+  two (virtual slots, distinct slots, the history tower) and (2, 4) over
+  four processes of two slots, held the same way (all processes the
+  same bits), the gradient norm within `GRAD_NORM_RTOL` of one device's,
+  the (1, 8) steps bit for bit those of the whole table on the same
+  split of the batch;
+  `Trainer.fit` + `save` over (1, 8): the artifact's table is the
+  gathered one, and within 5e-5 of the single-process trainer's;
+  `predict` and `recommend` give its lists.
 - The five sharded searches on exact inputs, on a (4, 2) mesh (each
   model row inside one process: the reference's layout) and a (1, 8) one
   (the model axis across the processes), queries replicated and
@@ -26,7 +34,8 @@ up after a minute. Dropout is off except in the checkpoint cycle.
   rule replicates.
 - The checkpoint cycle: 2 steps, `save_checkpoint` (the first process
   writes), step 3; in a fresh group, restore and step 3: the same loss
-  and parameters, bit for bit, dropout on.
+  and parameters, bit for bit, dropout on; again with `shard_vocab` over
+  a (1, 8) mesh, whose checkpoint holds the whole table and moments.
 - `RecommenderEngine(index_kind="sharded")` over both processes (a
   (1, 8) mesh and the default one): the same lists in both and the exact
   engine's.
@@ -87,18 +96,19 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def start(flow: str, directory: pathlib.Path, init: str, *extra: str):
+def start(flow: str, directory: pathlib.Path, init: str, *extra: str,
+          world: int = WORLD):
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS",)}
     env["PYTHONPATH"] = str(ROOT)
     env["OMP_NUM_THREADS"] = "2"
     return [
         subprocess.Popen(
             [sys.executable, str(ROOT / "tests" / "torch_multihost_workers.py"),
-             flow, str(rank), str(WORLD), init, str(directory), *extra],
+             flow, str(rank), str(world), init, str(directory), *extra],
             cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True,
         )
-        for rank in range(WORLD)
+        for rank in range(world)
     ]
 
 
@@ -121,7 +131,7 @@ def finish(procs, directory: pathlib.Path, name: str) -> list:
         return torch.load(directory / "reference.pt", weights_only=False)
     return [
         torch.load(directory / f"{name}_{rank}.pt", weights_only=False)
-        for rank in range(WORLD)
+        for rank in range(len(procs))
     ]
 
 
@@ -133,7 +143,7 @@ def ref_batches(directory: pathlib.Path, tower: str) -> list[dict]:
     extra = dict(max_history=3, max_bag=4) if tower == "history" else {}
     dm = RecDataModule(DataConfig(
         data_dir=str(directory / "refdata"), batch_size=BATCH,
-        max_length=8, vocab_size=300, **extra,
+        max_length=8, vocab_size=workers.VOCAB, **extra,
     ))
     dm.setup()
     return [b for _, b in zip(range(workers.TRAIN_STEPS), dm.train_batches(0))]
@@ -215,6 +225,8 @@ def runs(work, request):
     started = {
         "reference": [work[2]],
         "steps": start("steps", directory, store(directory, "steps")),
+        "steps4": start("steps4", directory, store(directory, "steps4"),
+                        world=workers.FOUR_WORLD),
         "search": start("search", directory, f"127.0.0.1:{free_port()}"),
         "ckpt_a": start("ckpt", directory, store(directory, "a"), "a"),
     }
@@ -306,19 +318,52 @@ def test_query_spec_auto_rule_under_a_group(runs):
 
 
 # -- training -------------------------------------------------------------
+ALL_CASES = {**workers.TRAIN_CASES, **workers.FOUR_CASES}
+# the token table split over a model row that spans processes
+ACROSS = ("text-vocab-across", "text-vocab-across-distinct",
+          "history-vocab-across", "text-vocab-2x4")
+
+
+def case_runs(runs, case: str) -> list:
+    """Every process's results of the flow that ran `case`."""
+    return runs["steps4" if case in workers.FOUR_CASES else "steps"]
+
+
+def single_devices(case: str) -> list[str]:
+    """The single-process mesh's 8 slots for `case`."""
+    slots = ALL_CASES[case][1]
+    return [slots[0]] * 8 if slots[0] == "cpu" else [f"cpu:{i}" for i in range(8)]
+
+
 @pytest.mark.parametrize("case", [*workers.TRAIN_CASES, workers.BF16])
 def test_steps_same_bits_in_both_processes(runs, case):
     r0, r1 = runs["steps"]
     assert_same_bits(r0[case], r1[case])
 
 
-@pytest.mark.parametrize("case", list(workers.TRAIN_CASES))
+@pytest.mark.parametrize("case", list(workers.FOUR_CASES))
+def test_steps_same_bits_in_four_processes(runs, case):
+    first, *others = runs["steps4"]
+    assert len(others) == workers.FOUR_WORLD - 1
+    for other in others:
+        assert_same_bits(first[case], other[case])
+
+
+@pytest.mark.parametrize(
+    "case,whole", [("text-vocab-across", "text"), ("history-vocab-across", "history")]
+)
+def test_split_table_steps_are_the_whole_tables(runs, case, whole):
+    """The lookup over the processes changes nothing: the steps are those
+    of the whole table on the same split of the batch, bit for bit."""
+    for result in runs["steps"]:
+        assert_same_bits(result[case], result[whole])
+
+
+@pytest.mark.parametrize("case", list(ALL_CASES))
 def test_steps_match_the_single_process_mesh(work, runs, case):
     inputs = work[1]
-    slots = workers.TRAIN_CASES[case][1]
-    devices = slots * 2 if slots[0] == "cpu" else [f"cpu:{i}" for i in range(8)]
-    want = workers.train_case(case, inputs, devices)
-    got = runs["steps"][0][case]
+    want = workers.train_case(case, inputs, single_devices(case))
+    got = case_runs(runs, case)[0][case]
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=PARAM_TOL)
     for key, value in want["params"].items():
         np.testing.assert_allclose(
@@ -332,7 +377,7 @@ def reference_steps(work) -> dict:
     after the steps in the port's layout)."""
     inputs = work[1]
     out = {}
-    for case, (tower, _, model_parallel, shard_vocab) in workers.TRAIN_CASES.items():
+    for case, (tower, _, model_parallel, shard_vocab) in ALL_CASES.items():
         kw = dict(workers.TINY, **workers.TOWERS[tower])
         config = ref_module.TrainConfig(**kw)
         mesh = ref_create_mesh(8, model_parallel=model_parallel)
@@ -354,10 +399,10 @@ def reference_steps(work) -> dict:
     return out
 
 
-@pytest.mark.parametrize("case", list(workers.TRAIN_CASES))
+@pytest.mark.parametrize("case", list(ALL_CASES))
 def test_steps_match_the_reference(runs, reference_steps, case):
     name, losses, want = reference_steps[case]
-    got = runs["steps"][1][case]
+    got = case_runs(runs, case)[-1][case]
     metric_names = sorted(got["metric_names"])
     for index, loss in enumerate(losses):
         np.testing.assert_allclose(
@@ -393,9 +438,41 @@ def test_bf16_step_matches_the_single_process_mesh(work, runs):
     )
 
 
-def test_shard_vocab_across_processes_is_refused(runs):
-    for result in runs["steps"]:
-        assert "model axis across processes" in result["vocab_across"]
+# `train/grad_norm` with the table split over processes against one
+# device's `global_norm` over the whole table: CPU readings 0.0 in every
+# case and step (the summed rows are the whole table's nonzero rows); the
+# gap allows another summation order. A table gradient counted twice
+# moves the norm by 0.28-0.36 relative, one left unsummed over the
+# processes by 3.8e-4-2.4e-3 (mutation checks on a copy)
+GRAD_NORM_RTOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def one_device_norms(work) -> dict:
+    """tower -> the gradient norm of each single-device step."""
+    inputs = work[1]
+    out = {}
+    for tower in workers.TOWERS:
+        config = port_module.TrainConfig(**dict(workers.TINY, **workers.TOWERS[tower]))
+        state = port_module.TrainState(config, device="cpu")
+        state.model.load_state_dict(inputs[f"init/{tower}"])
+        out[tower] = [
+            float(port_module.train_step(
+                state, port_module.batch_to_device(batch, torch.device("cpu"))
+            )["train/grad_norm"])
+            for batch in inputs[f"batches/{tower}"]
+        ]
+    return out
+
+
+@pytest.mark.parametrize("case", ACROSS)
+def test_vocab_across_grad_norm_matches_one_device(runs, one_device_norms, case):
+    got = case_runs(runs, case)[0][case]
+    column = got["metric_names"].index("train/grad_norm")
+    want = one_device_norms[ALL_CASES[case][0]]
+    np.testing.assert_allclose(
+        got["losses"][:, column].numpy(), want, rtol=GRAD_NORM_RTOL
+    )
 
 
 # -- retrieval ------------------------------------------------------------
@@ -445,17 +522,88 @@ def test_process_allgather_of_the_data_sharded_search(runs, tag):
 
 
 # -- the checkpoint cycle --------------------------------------------------
+def check_cycle(runs, name: str) -> None:
+    for a, b in zip(runs["ckpt_a"], runs["ckpt_b"], strict=True):
+        a, b = a[name], b[name]
+        assert b["restored_step"] == 2
+        assert a["loss"].dtype == torch.float32
+        assert torch.equal(a["loss"], b["loss"])
+        assert torch.equal(a["grad_norm"], b["grad_norm"])
+        assert_same_bits(a["params"], b["params"])
+        assert "p1:" in a["mesh"]
+    assert_same_bits(runs["ckpt_a"][0][name], runs["ckpt_a"][1][name])
+
+
 def test_checkpoint_cycle_bit_equal(work, runs):
     directory = work[0]
     saved = sorted(p.name for p in (directory / "ckpt").iterdir())
     assert saved == ["step2"]  # one writer, no temporary left
-    for a, b in zip(runs["ckpt_a"], runs["ckpt_b"], strict=True):
-        assert b["restored_step"] == 2
-        assert a["loss"].dtype == torch.float32
-        assert torch.equal(a["loss"], b["loss"])
-        assert_same_bits(a["params"], b["params"])
-        assert "p1:" in a["mesh"]
-    assert_same_bits(runs["ckpt_a"][0], runs["ckpt_a"][1])
+    check_cycle(runs, "plain")
+
+
+def test_checkpoint_cycle_bit_equal_with_shard_vocab(work, runs):
+    """The token table split over a (1, 8) mesh across both processes:
+    the resumed step 3 is the uninterrupted one in both, dropout on."""
+    directory = work[0]
+    assert sorted(p.name for p in (directory / "ckpt_vocab").iterdir()) == [
+        "step2"
+    ]
+    assert "'model': 8" in runs["ckpt_a"][0]["vocab"]["mesh"]
+    check_cycle(runs, "vocab")
+
+
+def test_shard_vocab_checkpoint_holds_the_whole_table(work):
+    """The checkpoint of the split table is an unsharded run's: the whole
+    (vocab, hidden) table and its AdamW moments, each moment of the
+    table's shape, one entry a parameter."""
+    saved = torch.load(work[0] / "ckpt_vocab" / "step2", weights_only=True)
+    vocab, hidden = workers.TINY["vocab_size"], workers.TINY["hidden_size"]
+    assert saved["params"]["word_embed.embedding"].shape == (vocab, hidden)
+    assert not any(".pieces." in key for key in saved["params"])
+    config = port_module.TrainConfig(**workers.TINY)
+    plain = port_module.TrainState(config, device="cpu")
+    assert list(saved["params"]) == list(plain.model.state_dict())
+    opt = saved["opt_state"]
+    assert opt["param_groups"][0]["params"] == list(range(len(saved["params"])))
+    names = list(saved["params"])
+    table = opt["state"][names.index("word_embed.embedding")]
+    assert table["exp_avg"].shape == table["exp_avg_sq"].shape == (vocab, hidden)
+    assert float(table["step"]) == 2
+    assert table["exp_avg_sq"].abs().sum() > 0
+
+
+# -- the trainer with the table split across processes ---------------------
+def artifact_table(path: pathlib.Path) -> torch.Tensor:
+    """The token table an artifact's `encoder.msgpack` holds."""
+    flat = convert.read_msgpack(path / "encoder.msgpack")
+    state = {convert.torch_name(k): v for k, v in flat.items()}
+    return torch.from_numpy(state["word_embed.embedding"])
+
+
+def test_vocab_across_artifact_holds_the_gathered_table(work, runs, tmp_path):
+    """`Trainer.fit` + `save` under `FIT_VOCAB` over both processes: the
+    artifact's table is the gathered pieces, bit for bit, the same in
+    both processes, and within 5e-5 of the single-process trainer's
+    (whose validation metrics it matches)."""
+    r0, r1 = runs["steps"]
+    assert torch.equal(r0["fit_table"], r1["fit_table"])
+    table = artifact_table(work[0] / "art_across")
+    assert torch.equal(table, r0["fit_table"])
+    single = workers.fit_trainer(work[0], "single", ["cpu"] * 8)
+    want = single.fit()
+    single.save(tmp_path / "art")
+    theirs = artifact_table(tmp_path / "art")
+    assert (table - theirs).abs().max().item() <= PARAM_TOL
+    assert r0["fit"].keys() == want.keys()
+    for key, value in want.items():
+        np.testing.assert_allclose(r0["fit"][key], value, rtol=1e-4, atol=1e-5,
+                                   err_msg=key)
+    # the encode paths under the lookup over the processes
+    theirs = workers.fit_answers(single)
+    for name in ("predict", "recommend"):
+        assert_same_bits(r0[name], r1[name])
+        np.testing.assert_array_equal(np.asarray(r0[name]),
+                                      np.asarray(theirs[name]))
 
 
 # -- the sharded engine ----------------------------------------------------

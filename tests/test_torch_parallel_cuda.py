@@ -22,7 +22,8 @@ where the machine has them. Run them with
   and 2; 3 steps on a (2, 2) mesh equal 3 single-card steps (losses and
   gradient norms, which a world size counted twice would double, within
   1e-4 relative; parameters within 5e-5), the two processes' parameters
-  the same bits.
+  the same bits; the same with `shard_vocab` on a (1, 4) mesh, the token
+  table's model row across the two processes.
 """
 
 import dataclasses
@@ -249,8 +250,20 @@ def test_two_processes_search_like_one(devices, tmp_path):
 
 
 def test_two_processes_train_like_one_card(devices, tmp_path):
+    check_like_one_card(two_processes("card_steps", tmp_path))
+
+
+def test_two_processes_shard_vocab_like_one_card(devices, tmp_path):
+    """The token table split over a (1, 4) mesh across the two processes
+    (each holds two pieces; the lookup sums over the group)."""
+    check_like_one_card(two_processes("card_vocab_steps", tmp_path))
+
+
+def check_like_one_card(results: list[dict]) -> None:
+    """Both processes the same bits; their losses and gradient norms
+    within 1e-4 relative of 3 single-card steps, parameters within 5e-5."""
     workers = workers_module()
-    r0, r1 = two_processes("card_steps", tmp_path)
+    r0, r1 = results
     for key, value in r0["params"].items():
         assert torch.equal(value, r1["params"][key]), key
     assert torch.equal(r0["losses"], r1["losses"])

@@ -16,6 +16,8 @@ packages' RNGs differ).
   distinct replicas); each piece holds at most ceil(vocab / m) rows; no
   `state` raises.
 - A `Trainer` fits on a CPU mesh and validates through `sharded_topk`.
+- A `shard_vocab` checkpoint holds the whole table and moments; a fresh
+  trainer restores it and takes the next step bit for bit.
 """
 
 import math
@@ -283,6 +285,38 @@ def test_trainer_shard_vocab_saves_the_gathered_table(data_dir, tmp_path):
     torch.testing.assert_close(engine.encoder.word_embed.embedding, table)
     assert len(engine.search_items(Query(text="toy story"), top_k=5)) == 5
 
+
+def test_shard_vocab_checkpoint_is_unsharded_and_resumes(data_dir, tmp_path):
+    """A `shard_vocab` checkpoint holds the whole table and its moments
+    (the layout of an unsharded run); a fresh trainer restores it, splits
+    it again and takes the uninterrupted run's next step, bit for bit."""
+    def trainer(name):
+        out = mesh_trainer(data_dir, tmp_path / name, devices=["cpu"] * 4,
+                           shard_vocab=True, model_parallel=2)
+        out.setup()
+        return out
+
+    first = trainer("a")
+    batches = [b for _, b in zip(range(3), first.data.train_batches(0))]
+    for batch in batches[:2]:
+        first.train_step(batch)
+    first.save_checkpoint(str(tmp_path / "ckpt"))
+    want = first.train_step(batches[2])
+    saved = torch.load(tmp_path / "ckpt", weights_only=True)
+    assert saved["params"]["word_embed.embedding"].shape == (500, 32)
+    moments = saved["opt_state"]["state"][
+        list(saved["params"]).index("word_embed.embedding")
+    ]
+    assert moments["exp_avg_sq"].shape == (500, 32)
+    second = trainer("b")
+    second.restore_checkpoint(str(tmp_path / "ckpt"))
+    assert isinstance(second.state.model.word_embed, ShardedEmbed)
+    got = second.train_step(batches[2])
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    ours = gathered_state_dict(second.state.model)
+    for name, value in gathered_state_dict(first.state.model).items():
+        assert torch.equal(ours[name], value), name
 
 @pytest.mark.parametrize(
     "devices,trainer,match",

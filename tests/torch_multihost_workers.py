@@ -10,7 +10,8 @@ Each process joins a gloo group (`initialize_distributed`, pinned to
 the CPU, every collective bounded by a timeout), lays out four slots on
 the CPU, runs one flow on inputs the test wrote under <dir>, and writes
 its results to `<dir>/<flow>_<rank>.pt` for the test to hold against the
-single-process mesh and the JAX package. The flow functions also run in
+single-process mesh and the JAX package (`steps4` runs in four processes
+of two slots). The flow functions also run in
 the test's own process on a one-controller mesh, so both sides run one
 code path. The `card_*` flows pin process r to `cuda:{r % cards}` (two
 slots each) for `tests/test_torch_parallel_cuda.py`: on one card both
@@ -38,13 +39,16 @@ from xfmr_rec_torch.training import module as train_mod
 
 SLOTS = 4  # slots a process
 CPU = torch.device("cpu")
+# divisible by 8: the reference places a table split over the model axis
+# only in equal pieces (its `device_put` refuses 300 rows over 8)
+VOCAB = 304
 
 TINY = dict(
     hidden_size=32,
     num_hidden_layers=1,
     num_attention_heads=4,
     intermediate_size=32,
-    vocab_size=300,
+    vocab_size=VOCAB,
     max_position_embeddings=16,
     max_length=8,
     dropout_rate=0.0,
@@ -68,9 +72,26 @@ TRAIN_CASES = {
     # distinct device slots: four replicas a process, summed locally and
     # then over the processes; the token table split over each model row
     "text-vocab-distinct": ("text", [f"cpu:{i}" for i in range(SLOTS)], 2, True),
+    # the token table split over one model row that spans both processes
+    # (each holds four of the eight pieces): virtual slots, distinct
+    # slots, and the history tower
+    "text-vocab-across": ("text", ["cpu"] * SLOTS, 8, True),
+    "text-vocab-across-distinct": (
+        "text", [f"cpu:{i}" for i in range(SLOTS)], 8, True
+    ),
+    "history-vocab-across": ("history", ["cpu"] * SLOTS, 8, True),
 }
+# the four-process flow: a (2, 4) mesh of two slots a process, each model
+# row over two processes and each piece held once in each data row
+FOUR_WORLD = 4
+FOUR_CASES = {"text-vocab-2x4": ("text", ["cpu"] * 2, 4, True)}
+# the trainer over a model row that spans both processes (dropout off):
+# `fit` with one validation through `sharded_topk`, then `save`
+FIT_VOCAB = dict(mesh=True, model_parallel=8, shard_vocab=True, max_steps=3,
+                 limit_val_batches=2, limit_val_loss_batches=2,
+                 checkpointing=False, seed=3)
 # the checkpoint flow's synthetic corpus (the test prepares it first)
-CKPT_DATA = dict(batch_size=8, max_length=8, vocab_size=300,
+CKPT_DATA = dict(batch_size=8, max_length=8, vocab_size=VOCAB,
                  synthetic_users=40, synthetic_movies=120,
                  synthetic_ratings=1200)
 TRAIN_STEPS = 2
@@ -83,7 +104,7 @@ def train_case(name: str, inputs: dict, devices: list[str], **kw) -> dict:
     """`TRAIN_STEPS` sharded steps of one case from the saved init (`kw`
     overrides the config): {"losses": per-step metrics, "params": the
     gathered state dict}."""
-    tower, _, model_parallel, shard_vocab = TRAIN_CASES[name]
+    tower, _, model_parallel, shard_vocab = {**TRAIN_CASES, **FOUR_CASES}[name]
     config = train_mod.TrainConfig(**dict(TINY, **TOWERS[tower], **kw))
     state = train_mod.TrainState(config, device=CPU)
     state.model.load_state_dict(inputs[f"init/{tower}"])
@@ -146,16 +167,47 @@ def flow_steps(directory: pathlib.Path, rank: int) -> dict:
     # the port's default compute type, whose rows travel as bf16
     out[BF16] = train_case("text", inputs, TRAIN_CASES["text"][1],
                            compute_dtype="bfloat16")
-    # the model axis across the processes: refused
-    config = train_mod.TrainConfig(**TINY)
-    state = train_mod.TrainState(config, device=CPU)
-    wide = mesh_mod.create_mesh(model_parallel=8, devices=["cpu"] * SLOTS)
-    try:
-        place_state(state, wide, config, shard_vocab=True)
-        out["vocab_across"] = ""
-    except NotImplementedError as err:
-        out["vocab_across"] = str(err)
+    trainer = fit_trainer(directory, "across", ["cpu"] * SLOTS)
+    out["fit"] = trainer.fit()
+    out.update(fit_answers(trainer))
+    trainer.save(directory / "art_across")
+    out["fit_table"] = trainer.state.model.word_embed.full()
     return out
+
+
+def fit_answers(trainer) -> dict:
+    """The encode paths after a fit: `predict` and `recommend`."""
+    predicted = trainer.predict(top_k=5)
+    return {
+        "predict": predicted["rec_item_ids"],
+        "recommend": [[c["movie_id"] for c in row] for row in trainer.recommend(
+            ["comedy", "a quiet drama about family"], top_k=5
+        )],
+    }
+
+
+def fit_trainer(directory: pathlib.Path, name: str, devices: list[str]):
+    """`Trainer` under `FIT_VOCAB` on the checkpoint flow's corpus."""
+    from xfmr_rec_torch.data.module import DataConfig, RecDataModule
+    from xfmr_rec_torch.training.trainer import Trainer, TrainerConfig
+
+    return Trainer(
+        train_mod.TrainConfig(**dict(TINY, index_dtype="float32")),
+        data=RecDataModule(
+            DataConfig(data_dir=str(directory / "data"), **CKPT_DATA)
+        ),
+        trainer_config=TrainerConfig(
+            log_dir=str(directory / "runs"), run_name=name, **FIT_VOCAB
+        ),
+        device="cpu",
+        devices=devices,
+    )
+
+
+def flow_steps4(directory: pathlib.Path, rank: int) -> dict:
+    inputs = torch.load(directory / "inputs.pt", weights_only=False)
+    return {name: train_case(name, inputs, case[1])
+            for name, case in FOUR_CASES.items()}
 
 
 def flow_search(directory: pathlib.Path, rank: int) -> dict:
@@ -187,42 +239,54 @@ def flow_search(directory: pathlib.Path, rank: int) -> dict:
     return out
 
 
+# the checkpoint cycles: name -> (checkpoint directory, model_parallel,
+# shard_vocab); "vocab" splits the table over a model row that spans both
+# processes
+CKPT_CASES = {"plain": ("ckpt", 2, False), "vocab": ("ckpt_vocab", 8, True)}
+
+
 def flow_ckpt(directory: pathlib.Path, rank: int, phase: str) -> dict:
-    """Phase "a": 2 steps, `save_checkpoint` (the first process writes),
-    step 3. Phase "b" (a fresh group): restore, step 3."""
+    """For each of `CKPT_CASES`: phase "a": 2 steps, `save_checkpoint`
+    (the first process writes), step 3. Phase "b" (a fresh group):
+    restore, step 3."""
     from xfmr_rec_torch.data.module import DataConfig, RecDataModule
     from xfmr_rec_torch.training.trainer import Trainer, TrainerConfig
 
-    trainer = Trainer(
-        # dropout on: the resumed step must draw the masks the
-        # uninterrupted one drew, in every process
-        train_mod.TrainConfig(**dict(TINY, dropout_rate=0.1)),
-        data=RecDataModule(
-            DataConfig(data_dir=str(directory / "data"), **CKPT_DATA)
-        ),
-        trainer_config=TrainerConfig(
-            mesh=True, model_parallel=2, log_dir=str(directory / "runs"),
-            run_name="ckpt", ckpt_dir=str(directory / "ckpt"), seed=3,
-        ),
-        device="cpu",
-        devices=["cpu"] * SLOTS,
-    )
-    trainer.setup()
-    batches = [b for _, b in zip(range(3), trainer.data.train_batches(0))]
-    if phase == "a":
-        for batch in batches[:2]:
-            trainer.train_step(batch)
-        trainer.save_checkpoint("step2")
-    else:
-        trainer.restore_checkpoint("step2")
-    step = trainer.global_step
-    metrics = trainer.train_step(batches[2])
-    return {
-        "restored_step": step,
-        "loss": metrics["train/PairwiseHingeLoss"].cpu(),
-        "params": gathered_state_dict(trainer.state.model),
-        "mesh": repr(trainer.mesh),
-    }
+    out = {}
+    for name, (ckpt, model_parallel, shard_vocab) in CKPT_CASES.items():
+        trainer = Trainer(
+            # dropout on: the resumed step must draw the masks the
+            # uninterrupted one drew, in every process
+            train_mod.TrainConfig(**dict(TINY, dropout_rate=0.1)),
+            data=RecDataModule(
+                DataConfig(data_dir=str(directory / "data"), **CKPT_DATA)
+            ),
+            trainer_config=TrainerConfig(
+                mesh=True, model_parallel=model_parallel,
+                shard_vocab=shard_vocab, log_dir=str(directory / "runs"),
+                run_name="ckpt", ckpt_dir=str(directory / ckpt), seed=3,
+            ),
+            device="cpu",
+            devices=["cpu"] * SLOTS,
+        )
+        trainer.setup()
+        batches = [b for _, b in zip(range(3), trainer.data.train_batches(0))]
+        if phase == "a":
+            for batch in batches[:2]:
+                trainer.train_step(batch)
+            trainer.save_checkpoint("step2")
+        else:
+            trainer.restore_checkpoint("step2")
+        step = trainer.global_step
+        metrics = trainer.train_step(batches[2])
+        out[name] = {
+            "restored_step": step,
+            "loss": metrics["train/PairwiseHingeLoss"].cpu(),
+            "grad_norm": metrics["train/grad_norm"].cpu(),
+            "params": gathered_state_dict(trainer.state.model),
+            "mesh": repr(trainer.mesh),
+        }
+    return out
 
 
 def serve_requests(engine) -> list:
@@ -319,11 +383,22 @@ def flow_card_search(directory: pathlib.Path, rank: int) -> dict:
 
 
 def flow_card_steps(directory: pathlib.Path, rank: int) -> dict:
+    return card_steps(model_parallel=2, shard_vocab=False)
+
+
+def flow_card_vocab_steps(directory: pathlib.Path, rank: int) -> dict:
+    # the token table split over a (1, 4) mesh: two pieces a process
+    return card_steps(model_parallel=4, shard_vocab=True)
+
+
+def card_steps(model_parallel: int, shard_vocab: bool) -> dict:
     config = card_config()
     state = train_mod.TrainState(config, device="cuda")
-    mesh = mesh_mod.create_mesh(model_parallel=2, devices=["cuda"] * 2)
-    place_state(state, mesh, config)
-    step = make_sharded_train_step(config, mesh, state=state)
+    mesh = mesh_mod.create_mesh(model_parallel=model_parallel,
+                                devices=["cuda"] * 2)
+    place_state(state, mesh, config, shard_vocab=shard_vocab)
+    step = make_sharded_train_step(config, mesh, shard_vocab=shard_vocab,
+                                   state=state)
     metrics = [step(state, mesh_mod.shard_batch(batch, mesh))
                for batch in card_batches()]
     return {
@@ -336,11 +411,13 @@ def flow_card_steps(directory: pathlib.Path, rank: int) -> dict:
 
 FLOWS = {
     "steps": flow_steps,
+    "steps4": flow_steps4,
     "search": flow_search,
     "ckpt": flow_ckpt,
     "serve": flow_serve,
     "card_search": flow_card_search,
     "card_steps": flow_card_steps,
+    "card_vocab_steps": flow_card_vocab_steps,
 }
 
 

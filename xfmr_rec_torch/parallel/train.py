@@ -31,25 +31,38 @@ resumed from a checkpoint draws what the uninterrupted run drew.
 
 `shard_vocab=True` splits the one tensor that dominates the parameter
 count, the (vocab, hidden) token-embedding table, row-wise into m pieces
-of ceil(vocab / m) rows (the last zero-padded), one per model-axis
-device. Each piece is its own parameter, so AdamW keeps its moments
-beside it, and the lookup is a masked local gather a piece, summed. The
-replicas share the pieces, so their gradients land there directly. Over
-processes this needs each model row inside one process (the reference's
-layout at `model_parallel=2`): every process then holds all the pieces.
+of ceil(vocab / m) rows (the last zero-padded), one per model column.
+Each piece is its own parameter, so AdamW keeps its moments beside it. A
+process holds the pieces of the columns it has slots in (on its first
+slot of each). Where every process holds every column (one controller,
+or each model row inside one process) the lookup is a masked local
+gather a piece, summed, and the replicas' gradients land on the pieces
+directly. Where a model row crosses processes, a pass first fetches the
+rows of the global batch's distinct token ids: the process holding a
+column's slot in data row 0 gives its rows, every other process adds
+exact zeros, and one f32 all-reduce over the group gives every process
+every row bit for bit; the replicas' lookups index those rows. The
+backward sums the rows' gradient over the group (one all-reduce: each
+process's replicas give their own positions' share) and writes it into
+every piece a process holds, so a piece's gradient is the single-device
+table's rows, counted once. The pieces stay out of the step's gradient
+all-reduce, and the gradient norm counts the summed rows once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from collections.abc import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from xfmr_rec_torch.models.encoder import Embed, needs_two_tower
 from xfmr_rec_torch.ops.losses import compute_losses
 from xfmr_rec_torch.parallel.mesh import (
+    MODEL_AXIS,
     Mesh,
     gather_rows,
     replicate,
@@ -59,6 +72,8 @@ from xfmr_rec_torch.parallel.mesh import (
 from xfmr_rec_torch.training import module as train_mod
 from xfmr_rec_torch.training.module import TrainConfig, TrainState
 
+# batch fields that hold token ids (what a sharded table looks up)
+_TOKEN_INPUTS = ("user_tokens", "item_tokens", "neg_item_tokens", "hist_tokens")
 # batch fields a replica encodes, besides the three towers (all lead
 # with the batch axis)
 _ROW_INPUTS = (
@@ -73,51 +88,180 @@ _ROW_INPUTS = (
 
 
 def _split_table(
-    value: torch.Tensor, devices: Sequence[torch.device]
+    value: torch.Tensor, parts: int, devices: dict[int, torch.device]
 ) -> list[torch.Tensor]:
-    """Row pieces of ceil(rows / m) rows, one on each device, the last
-    zero-padded."""
-    per = -(-value.shape[0] // len(devices))
+    """Row pieces of ceil(rows / parts) rows, the last zero-padded: piece
+    j on `devices[j]` for each column j of `devices`, in its order."""
+    per = -(-value.shape[0] // parts)
     padded = nn.functional.pad(
-        value.detach(), (0, 0, 0, per * len(devices) - value.shape[0])
+        value.detach(), (0, 0, 0, per * parts - value.shape[0])
     )
     return [
         padded[j * per : (j + 1) * per].to(dev).clone()
-        for j, dev in enumerate(devices)
+        for j, dev in devices.items()
     ]
 
 
-class ShardedEmbed(nn.Module):
-    """A (vocab, hidden) table split row-wise over devices.
+class _RowLookup(torch.autograd.Function):
+    """A table's f32 rows of the sorted distinct `ids`, summed over its
+    group: each column's rows come from the process holding its slot in
+    data row 0 and the others add exact zeros, so every process receives
+    every row bit for bit. Backward: one all-reduce of the rows' gradient
+    (each process's replicas give their own positions' share), written
+    into every piece this process holds (the ids are distinct, so each
+    piece row receives its summed gradient as it is)."""
 
-    `pieces[j]` holds rows [j * per, (j + 1) * per) on `devices[j]`,
-    per = ceil(vocab / m), the last piece zero-padded. The lookup is
-    `Embed`'s: rows gathered in f32 (each piece's masked local gather,
-    summed: one term is the row, the others exact zeros), then cast.
+    @staticmethod
+    def forward(ctx, table, ids, *pieces):
+        ctx.table = table
+        ctx.save_for_backward(ids)
+        out = torch.zeros(len(ids), table.features, device=table.lead)
+        for j, piece in zip(table.columns, pieces, strict=True):
+            if table.givers[j] == table.rank:
+                out += table.take(j, piece, ids).to(table.lead)
+        return sum_to([out], table.lead, table.group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        table = ctx.table
+        rows = sum_to([grad.contiguous()], table.lead, table.group)
+        # the step's gradient norm counts these rows once
+        table.reduced_grad = rows
+        grads = []
+        for j, piece in zip(table.columns, table.pieces, strict=True):
+            local, inside = table.local_ids(j, ids.to(piece.device))
+            g = torch.zeros_like(piece)
+            g[local[inside]] = rows.to(piece.device)[inside]
+            grads.append(g)
+        return None, None, *grads
+
+
+class ShardedEmbed(nn.Module):
+    """A (vocab, hidden) table split row-wise over the model columns.
+
+    Column j's piece holds rows [j * per, (j + 1) * per), per =
+    ceil(vocab / parts), the last zero-padded; `pieces` holds the pieces
+    of `columns`, the columns this process has slots in, each on
+    `devices[j]`. The lookup is `Embed`'s: rows gathered in f32, then
+    cast. With `group` None (every process holds every column) it is each
+    piece's masked local gather, summed (one term is the row, the others
+    exact zeros). Under a group a lookup indexes the rows `_fetch_rows`
+    fetched for the pass (one collective for every replica), or fetches
+    its own ids (a call every process makes alike); `givers[j]` is the
+    process that gives column j's rows to the sum.
     """
 
-    def __init__(self, table: torch.Tensor, devices: Sequence[torch.device]) -> None:
+    def __init__(
+        self,
+        table: torch.Tensor,
+        parts: int,
+        devices: dict[int, torch.device],
+        *,
+        group=None,
+        givers: Sequence[int] = (),
+        lead: torch.device | None = None,
+    ) -> None:
         super().__init__()
-        self.num = table.shape[0]
-        self.per = -(-self.num // len(devices))
+        self.num, self.features = table.shape
+        self.parts = parts
+        self.per = -(-self.num // parts)
+        self.columns = list(devices)
         self.pieces = nn.ParameterList(
-            nn.Parameter(piece) for piece in _split_table(table, devices)
+            nn.Parameter(piece) for piece in _split_table(table, parts, devices)
         )
+        self.group = group
+        self.givers = list(givers)
+        self.rank = dist.get_rank() if group is not None else 0
+        self.lead = lead or self.pieces[0].device
+        # under a group: (distinct ids, their rows) of the pass, and the
+        # rows' gradient summed over the group by the last backward
+        self.fetched: tuple[torch.Tensor, torch.Tensor] | None = None
+        self.reduced_grad: torch.Tensor | None = None
+
+    def local_ids(self, j: int, ids: torch.Tensor):
+        """(ids as rows of column j's piece, clipped to 0 outside it; the
+        mask of those inside)."""
+        local = ids - j * self.per
+        inside = (local >= 0) & (local < self.per)
+        return torch.where(inside, local, 0), inside
+
+    def take(self, j: int, piece: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Column j's masked gather: its rows of `ids`, zeros elsewhere."""
+        local, inside = self.local_ids(j, ids.to(piece.device))
+        return nn.functional.embedding(local, piece) * inside[..., None]
 
     def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        out = None
-        for j, piece in enumerate(self.pieces):
-            local = ids.to(piece.device) - j * self.per
-            inside = (local >= 0) & (local < self.per)
-            rows = nn.functional.embedding(torch.where(inside, local, 0), piece)
-            rows = (rows * inside[..., None]).to(ids.device)
-            out = rows if out is None else out + rows
-        return out.to(dtype)
+        if self.group is None:
+            out = None
+            for j, piece in zip(self.columns, self.pieces, strict=True):
+                rows = self.take(j, piece, ids).to(ids.device)
+                out = rows if out is None else out + rows
+            return out.to(dtype)
+        distinct, rows = self.fetched or _fetch_rows(self, ids)
+        flat = ids.reshape(-1).to(distinct.device)
+        pos = torch.searchsorted(distinct, flat).clamp_(max=len(distinct) - 1)
+        if not torch.equal(distinct[pos], flat):
+            msg = "a sharded table was asked for ids its pass did not fetch"
+            raise RuntimeError(msg)
+        out = nn.functional.embedding(pos.reshape(ids.shape), rows)
+        return out.to(ids.device).to(dtype)
+
+    def gather(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The whole (vocab, ...) tensor on the lead from `parts`, one for
+        each of `pieces` (the pieces or their AdamW moments). Under a group
+        every process calls it: each gives the columns it gives to the
+        lookup, gathered over the group."""
+        if self.group is None:
+            return torch.cat([p.detach().to(self.lead) for p in parts])[: self.num]
+        mine = [
+            part.detach()
+            for j, part in zip(self.columns, parts, strict=True)
+            if self.givers[j] == self.rank
+        ]
+        with torch.no_grad():
+            gathered = gather_rows(mine, self.lead, self.group)
+        # member order, then column order within a member
+        order = sorted(range(self.parts), key=lambda j: (self.givers[j], j))
+        by_column = dict(zip(order, torch.split(gathered, self.per), strict=True))
+        return torch.cat([by_column[j] for j in range(self.parts)])[: self.num]
 
     def full(self) -> torch.Tensor:
-        """The whole table, gathered on the first piece's device."""
-        lead = self.pieces[0].device
-        return torch.cat([p.detach().to(lead) for p in self.pieces])[: self.num]
+        """The whole table on the lead device (under a group every process
+        calls it)."""
+        return self.gather(list(self.pieces))
+
+
+def _fetch_rows(
+    table: ShardedEmbed, ids: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the sorted distinct `ids`, their f32 rows), from one collective
+    over the table's group (every process passes the same ids)."""
+    distinct = torch.unique(ids.reshape(-1).to(table.lead).long())
+    return distinct, _RowLookup.apply(table, distinct, *table.pieces)
+
+
+@contextlib.contextmanager
+def _fetched(model: nn.Module, ids: torch.Tensor):
+    """Within the block every cross-process table of `model` looks up
+    the rows of `ids`, fetched once (one collective for every replica,
+    so the processes stay in step whatever devices each holds)."""
+    tables = _collective_tables(model)
+    for table in tables:
+        table.fetched = _fetch_rows(table, ids)
+    try:
+        yield
+    finally:
+        for table in tables:
+            table.fetched = None
+
+
+def _collective_tables(model: nn.Module) -> list[ShardedEmbed]:
+    """The tables whose lookup sums over a process group."""
+    return [
+        m for m in model.modules()
+        if isinstance(m, ShardedEmbed) and m.group is not None
+    ]
 
 
 class _SharedEmbed(nn.Module):
@@ -158,12 +302,28 @@ def _sharded_children(model: nn.Module) -> list[tuple[nn.Module, str]]:
     return _children(model, lambda _, child: isinstance(child, ShardedEmbed))
 
 
+def _vocab_layout(mesh: Mesh):
+    """(this process's device for each model column it has slots in, its
+    first slot's; the group a lookup sums over, None where every process
+    holds every column; the process giving each column's rows: its slot
+    in data row 0)."""
+    devices: dict[int, torch.device] = {}
+    for i, j in sorted(mesh.local_slots(), key=lambda slot: (slot[1], slot[0])):
+        devices.setdefault(j, mesh.devices[i, j])
+    everywhere = all(
+        len(set(column.tolist())) == mesh.process_count for column in mesh.owners.T
+    )
+    group = None if everywhere else mesh.group
+    return devices, group, [int(o) for o in mesh.owners[0]]
+
+
 def place_state(
     state: TrainState, mesh: Mesh, config: TrainConfig, *, shard_vocab: bool = False
 ) -> TrainState:
     """Put a TrainState on the mesh: the model on the lead device, and
     with `shard_vocab` every vocab table split over the model axis (its
-    AdamW moments split alongside). The optimizer is rebuilt over the new
+    AdamW moments split alongside), this process keeping the pieces of
+    the columns it has slots in. The optimizer is rebuilt over the new
     parameters."""
     replicate(state.model, mesh)
     state.device = mesh.lead
@@ -173,19 +333,15 @@ def place_state(
                 opt_state[key] = value.to(mesh.lead)
     if not shard_vocab:
         return state
-    if any(len(set(row)) > 1 for row in mesh.owners.tolist()):
-        msg = (
-            "shard_vocab with the model axis across processes is not "
-            f"supported (mesh {mesh}); pick model_parallel so that each "
-            "model row lies inside one process"
-        )
-        raise NotImplementedError(msg)
-    devices = list(mesh.devices[mesh.local_slots()[0][0]])
+    devices, lookup_group, givers = _vocab_layout(mesh)
     old = state.optimizer
     moved: dict[nn.Parameter, list[nn.Parameter]] = {}
     for parent, attr in _vocab_tables(state.model, config):
         table = getattr(parent, attr).embedding
-        sharded = ShardedEmbed(table, devices)
+        sharded = ShardedEmbed(
+            table, mesh.shape[MODEL_AXIS], devices,
+            group=lookup_group, givers=givers, lead=mesh.lead,
+        )
         setattr(parent, attr, sharded)
         moved[table] = list(sharded.pieces)
     group = old.param_groups[0]
@@ -202,7 +358,7 @@ def place_state(
             continue
         pieces = moved[param]
         split = {
-            key: _split_table(value, [p.device for p in pieces])
+            key: _split_table(value, mesh.shape[MODEL_AXIS], devices)
             for key, value in saved.items()
             if torch.is_tensor(value) and value.dim()
         }
@@ -220,7 +376,8 @@ def place_state(
 
 def gathered_state_dict(model: nn.Module) -> dict[str, torch.Tensor]:
     """`model.state_dict()` with every `ShardedEmbed` gathered back into
-    its `<name>.embedding` (the replicated layout the artifact holds)."""
+    its `<name>.embedding` (the replicated layout the artifact holds).
+    Under a group every process calls it and receives the whole tables."""
     sharded = {
         name: mod for name, mod in model.named_modules()
         if isinstance(mod, ShardedEmbed)
@@ -235,6 +392,43 @@ def gathered_state_dict(model: nn.Module) -> dict[str, torch.Tensor]:
         elif f"{owner}.embedding" not in out:
             out[f"{owner}.embedding"] = sharded[owner].full()
     return out
+
+
+def unsharded_state(state: TrainState) -> tuple[dict, dict]:
+    """(the model's, the optimizer's state dict) in the layout of an
+    unsharded run: every sharded table and its AdamW moments whole (the
+    step count of its first piece; every piece keeps the same count).
+    Under a group every process calls it. A fresh `TrainState` loads
+    both, and `place_state` splits them again."""
+    tables = {
+        id(p): table for table in state.model.modules()
+        if isinstance(table, ShardedEmbed) for p in table.pieces
+    }
+    optimizer = state.optimizer
+    if not tables:
+        return state.model.state_dict(), optimizer.state_dict()
+    entries: list[dict] = []
+    done: set[int] = set()
+    for param in optimizer.param_groups[0]["params"]:
+        table = tables.get(id(param))
+        if table is None:
+            entries.append(optimizer.state.get(param, {}))
+        elif id(table) not in done:
+            done.add(id(table))
+            saved = [optimizer.state.get(p, {}) for p in table.pieces]
+            entries.append({
+                key: table.gather([s[key] for s in saved])
+                if torch.is_tensor(value) and value.dim() else value
+                for key, value in saved[0].items()
+            })
+    group = {
+        key: value for key, value in optimizer.param_groups[0].items()
+        if key != "params"
+    }
+    return gathered_state_dict(state.model), {
+        "state": {i: entry for i, entry in enumerate(entries) if entry},
+        "param_groups": [{**group, "params": list(range(len(entries)))}],
+    }
 
 
 class ShardedTrainStep:
@@ -340,26 +534,35 @@ class ShardedTrainStep:
         users: list[torch.Tensor | None] = [None] * len(shards)
         pos: list[torch.Tensor | None] = [None] * len(shards)
         neg: list[torch.Tensor | None] = [None] * len(shards)
-        for device, replica, generator in replicas:
-            mine = self._chunks_of(device)
-            part = {
-                key: torch.cat([shards[i][key] for i in mine])
-                for key in ("user_tokens", "item_tokens", "neg_item_tokens",
-                            *_ROW_INPUTS)
-                if key in shards[local[0]]
-            }
-            index = torch.cat([
-                torch.arange(i * chunk, (i + 1) * chunk, device=lead) for i in mine
-            ])
-            n = index.numel()
-            u, it = self._encode_part(
-                replica, part, batch["item_idx"], index, rows, generator, device
-            )
-            for slot, i in enumerate(mine):
-                piece = slice(slot * chunk, (slot + 1) * chunk)
-                users[i] = u[piece]
-                pos[i] = it[:n][piece]
-                neg[i] = it[n:][piece]
+        tables = _collective_tables(state.model)
+        for table in tables:
+            table.reduced_grad = None
+        token_ids = torch.cat(
+            [batch[key].reshape(-1) for key in _TOKEN_INPUTS if key in batch]
+        )
+        with _fetched(state.model, token_ids):
+            for device, replica, generator in replicas:
+                mine = self._chunks_of(device)
+                part = {
+                    key: torch.cat([shards[i][key] for i in mine])
+                    for key in ("user_tokens", "item_tokens", "neg_item_tokens",
+                                *_ROW_INPUTS)
+                    if key in shards[local[0]]
+                }
+                index = torch.cat([
+                    torch.arange(i * chunk, (i + 1) * chunk, device=lead)
+                    for i in mine
+                ])
+                n = index.numel()
+                u, it = self._encode_part(
+                    replica, part, batch["item_idx"], index, rows, generator,
+                    device,
+                )
+                for slot, i in enumerate(mine):
+                    piece = slice(slot * chunk, (slot + 1) * chunk)
+                    users[i] = u[piece]
+                    pos[i] = it[:n][piece]
+                    neg[i] = it[n:][piece]
         user_embed = gather_rows([users[i] for i in local], lead, group)
         item_embed = torch.cat([
             gather_rows([pos[i] for i in local], lead, group),
@@ -388,18 +591,30 @@ class ShardedTrainStep:
         for param in params:
             if param.grad is None:
                 param.grad = torch.zeros_like(param)
+        # a cross-process table's pieces already hold the summed gradient
+        whole = {id(p): table for table in tables for p in table.pieces}
+        summed = [p for p in params if id(p) not in whole]
         if group is not None:
-            # one all-reduce of every gradient, flattened
+            # one all-reduce of every other gradient, flattened
             total = sum_to(
-                [torch.cat([p.grad.reshape(-1).to(lead) for p in params])],
+                [torch.cat([p.grad.reshape(-1).to(lead) for p in summed])],
                 lead,
                 group,
             )
             for param, grad in zip(
-                params, torch.split(total, [p.numel() for p in params]), strict=True
+                summed, torch.split(total, [p.numel() for p in summed]), strict=True
             ):
                 param.grad = grad.view_as(param).to(param.device)
-        grad_norm = train_mod.global_norm([param.grad for param in params])
+        # each table counted once, in its place: its rows' summed gradient
+        terms, counted = [], set()
+        for param in params:
+            table = whole.get(id(param))
+            if table is None:
+                terms.append(param.grad)
+            elif id(table) not in counted and table.reduced_grad is not None:
+                counted.add(id(table))
+                terms.append(table.reduced_grad)
+        grad_norm = train_mod.global_norm(terms)
         state.optimizer.step()
         state.step += 1
         metrics = {f"train/{name}": loss.detach() for name, loss in losses.items()}
@@ -435,7 +650,9 @@ class ShardedTrainStep:
     ) -> torch.Tensor:
         """`fn(model, *row_chunks)` over rows split like a batch (zero
         rows pad the batch to the mesh size), each device's chunks in one
-        call, gathered to the lead in row order."""
+        call, gathered to the lead in row order. The first of `rows` holds
+        the token ids a sharded table looks up (fetched once under a
+        group)."""
         size = self.mesh.size
         local = self.mesh.local_indices()
         count = rows[0].shape[0]
@@ -447,12 +664,13 @@ class ShardedTrainStep:
         split = [split_rows(r, size) for r in rows]
         chunk = (count + pad) // size
         outs: list[torch.Tensor | None] = [None] * size
-        for device, replica, _ in self._replicas_of(state):
-            mine = self._chunks_of(device)
-            part = [torch.cat([s[i] for i in mine]).to(device) for s in split]
-            out = fn(replica, *part).to(self.mesh.lead)
-            for slot, i in enumerate(mine):
-                outs[i] = out[slot * chunk : (slot + 1) * chunk]
+        with _fetched(state.model, rows[0]):
+            for device, replica, _ in self._replicas_of(state):
+                mine = self._chunks_of(device)
+                part = [torch.cat([s[i] for i in mine]).to(device) for s in split]
+                out = fn(replica, *part).to(self.mesh.lead)
+                for slot, i in enumerate(mine):
+                    outs[i] = out[slot * chunk : (slot + 1) * chunk]
         out = gather_rows([outs[i] for i in local], self.mesh.lead, self.mesh.group)
         return out[:count]
 

@@ -39,7 +39,9 @@ than one device is given (`devices=`, else the visible cards), the
 trainer builds a (data, model) mesh with `model_parallel` on the model
 axis. A step is the single-device step over the global batch
 (`parallel/train.py`; the batch size must divide by the mesh size), and
-`shard_vocab` splits the token table over the model axis. Eval encodes
+`shard_vocab` splits the token table over the model axis, also where a
+model row crosses processes (each process then holds its columns'
+pieces); checkpoints and the artifact hold the whole table. Eval encodes
 in chunks padded to the mesh size; with `model_parallel > 1` the eval
 corpus is split over the model axis and searched by `sharded_topk`, its
 shard-balancing rows excluded.
@@ -87,6 +89,7 @@ from xfmr_rec_torch.parallel.train import (
     gathered_state_dict,
     make_sharded_train_step,
     place_state,
+    unsharded_state,
 )
 from xfmr_rec_torch.params import (
     CF_NPZ,
@@ -774,16 +777,18 @@ class Trainer:
         return pathlib.Path(base).absolute() / name
 
     def save_checkpoint(self, name: str = "last") -> None:
-        """Write the training state (in every process of a group the
-        state is the same: the first writes, the others wait)."""
+        """Write the training state in the layout of an unsharded run
+        (`shard_vocab` tables and their moments whole, gathered from every
+        process: all call it; the first writes, the others wait)."""
+        params, opt_state = unsharded_state(self.state)
         if self._writer:
             path = self._ckpt_path(name)
             path.parent.mkdir(parents=True, exist_ok=True)
             tmp = path.with_name(path.name + ".tmp")
             torch.save(
                 {
-                    "params": self.state.model.state_dict(),
-                    "opt_state": self.state.optimizer.state_dict(),
+                    "params": params,
+                    "opt_state": opt_state,
                     "step": self.state.step,
                     "best_metric": float(self.best_metric),
                     "dropout_generator": self.state.generator.get_state(),
@@ -798,8 +803,19 @@ class Trainer:
         saved = torch.load(
             self._ckpt_path(name), map_location=self.device, weights_only=True
         )
-        self.state.model.load_state_dict(saved["params"])
-        self.state.optimizer.load_state_dict(saved["opt_state"])
+        if saved["params"].keys() == self.state.model.state_dict().keys():
+            self.state.model.load_state_dict(saved["params"])
+            self.state.optimizer.load_state_dict(saved["opt_state"])
+        else:
+            # whole tables for a sharded model: load them into a fresh
+            # state and split them again
+            state = TrainState(
+                self.config, seed=self.trainer_config.seed, device=self.device
+            )
+            state.model.load_state_dict(saved["params"])
+            state.optimizer.load_state_dict(saved["opt_state"])
+            place_state(state, self.mesh, self.config, shard_vocab=True)
+            self.state = state
         self.state.step = int(saved["step"])
         self.best_metric = float(saved["best_metric"])
         self.state.generator.set_state(saved["dropout_generator"].cpu())
@@ -811,11 +827,14 @@ class Trainer:
         self.setup()
         if self.index is None:
             self.build_index()
+        state = gathered_state_dict(self.state.model)
         if self._writer:
-            self._write_artifact(pathlib.Path(path))
+            self._write_artifact(pathlib.Path(path), state)
         barrier()
 
-    def _write_artifact(self, path: pathlib.Path) -> None:
+    def _write_artifact(
+        self, path: pathlib.Path, state: dict[str, torch.Tensor]
+    ) -> None:
         path.mkdir(parents=True, exist_ok=True)
         model_dump = dataclasses.asdict(self.config)
         data_dump = dataclasses.asdict(self.data.config)
@@ -838,7 +857,6 @@ class Trainer:
         UserStore.from_prepared(self.data.config.data_dir).save(
             path / USERS_NPZ
         )
-        state = gathered_state_dict(self.state.model)
         write_msgpack(state, path)
         if needs_two_tower(self.config):
             state = {
