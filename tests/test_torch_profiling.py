@@ -3,7 +3,7 @@
 `device_trace` writes a Chrome trace (`*.pt.trace.json`) holding the
 block's operators; the trainer's `profile_dir` traces exactly train steps
 10-20 (ten optimizer steps in the trace), as the reference's does with
-`jax.profiler`; `StepTimer` counts as the reference's does.
+`jax.profiler`. The program's spans are `tests/test_torch_spans.py`'s.
 """
 
 import json
@@ -12,10 +12,9 @@ import pytest
 import torch
 
 from tests.test_torch_trainer import port_trainer
-from xfmr_rec_torch.utils.profiling import StepTimer, device_trace
+from xfmr_rec_torch.utils.profiling import device_trace
 from xfmr_rec_tpu.data.prepare import prepare_movielens
 from xfmr_rec_tpu.data.synthetic import generate_movielens
-from xfmr_rec_tpu.utils.profiling import StepTimer as RefStepTimer
 
 
 def trace_events(log_dir):
@@ -54,14 +53,3 @@ def test_profile_dir_traces_steps_10_to_20(data_dir, tmp_path):
              if event.get("cat") == "user_annotation"
              and event.get("name", "").startswith("Optimizer.step#AdamW")]
     assert len(steps) == 10
-
-
-def test_step_timer_counts_like_the_reference():
-    timers = (StepTimer(window=3), RefStepTimer(window=3))
-    for _ in range(5):
-        for timer in timers:
-            timer.tick()
-    got, want = (timer.summary() for timer in timers)
-    assert got["steps"] == want["steps"] == 5.0
-    assert got["steps_per_second"] > 0
-    assert len(timers[0]._times) == len(timers[1]._times) == 3

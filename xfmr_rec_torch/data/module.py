@@ -44,6 +44,7 @@ from xfmr_rec_torch.models.tokenizer import (
     build_vocab,
 )
 from xfmr_rec_torch.params import BATCH_SIZE, DATA_DIR
+from xfmr_rec_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -476,25 +477,31 @@ class RecDataModule:
 
     def train_batches(self, epoch: int = 0) -> Iterator[dict[str, np.ndarray]]:
         """Shuffled fixed-shape training batches with sampled negatives;
-        the trailing partial batch is dropped."""
+        the trailing partial batch is dropped. Each batch's assembly is a
+        `data.batch` span."""
         cfg = self.config
         rng = np.random.default_rng((cfg.seed, epoch))
         order = rng.permutation(len(self.train_user_pos))
         batch = cfg.batch_size
         for start in range(0, len(order) - batch + 1, batch):
-            take = order[start : start + batch]
-            yield self._assemble_loss_batch(
-                self.train_user_pos[take],
-                self.train_item_pos[take],
-                self.train_rating[take],
-                self.user_pos_idx,
-                self._neg_sampler,
-                hist=(
-                    (self.train_hist_pos[take], self.train_hist_rating[take])
-                    if cfg.max_history > 0
-                    else None
-                ),
-            )
+            with span("data.batch"):
+                take = order[start : start + batch]
+                assembled = self._assemble_loss_batch(
+                    self.train_user_pos[take],
+                    self.train_item_pos[take],
+                    self.train_rating[take],
+                    self.user_pos_idx,
+                    self._neg_sampler,
+                    hist=(
+                        (
+                            self.train_hist_pos[take],
+                            self.train_hist_rating[take],
+                        )
+                        if cfg.max_history > 0
+                        else None
+                    ),
+                )
+            yield assembled
 
     def eval_interaction_batches(
         self, subset: str = "val"

@@ -41,6 +41,7 @@ from xfmr_rec_torch.ops.topk_f32 import (
     certified_topk_parts,
     scan_topk_excluding,
 )
+from xfmr_rec_torch.utils.profiling import span
 
 NEG_INF = float("-inf")
 
@@ -137,6 +138,16 @@ def _quantize(
 
 
 _BM25_TOKEN = re.compile(r"[a-z0-9]+")
+
+
+def _host_queries(queries: np.ndarray | torch.Tensor) -> np.ndarray:
+    """Queries as a host (B, D) float32 array."""
+    if torch.is_tensor(queries):
+        queries = queries.float().cpu().numpy()
+    queries_f32 = np.asarray(queries, np.float32)
+    if queries_f32.ndim == 1:
+        queries_f32 = queries_f32[None, :]
+    return queries_f32
 
 
 class BM25Index:
@@ -473,26 +484,24 @@ class RetrievalIndex(CorpusMetadata):
         method="fused": the guarantee of "packed" with pass 1, retries
         and pool merges on the device (`packed_guaranteed_topk`), the
         dense path only for its residual.
+
+        Spans (`utils/profiling.py`): `index.search_certified` holds
+        `index.prepare` (the queries to the host, padded, uploaded, the
+        score bound), `index.pipeline` (pass 1 and the retries, one
+        `index.sweep` each) and `index.finish` (the answers to the host,
+        `index.dense` for rows that fall back, the id map).
         """
         if method not in ("f32", "packed", "fused"):
             msg = f"unknown certified search method {method!r}"
             raise ValueError(msg)
-        if torch.is_tensor(queries):
-            queries = queries.float().cpu().numpy()
-        queries_f32 = np.asarray(queries, np.float32)
-        if queries_f32.ndim == 1:
-            queries_f32 = queries_f32[None, :]
-        if method == "f32":
-            scores, positions = self._search_certified_f32(queries_f32, top_k)
-        elif method == "packed":
-            scores, positions = self._search_certified_packed(
-                queries_f32, top_k, exact_scores
-            )
-        else:
-            scores, positions = self._search_certified_fused(
-                queries_f32, top_k, exact_scores
-            )
-        return scores, self.ids[positions]
+        with span("index.search_certified"):
+            if method == "f32":
+                return self._search_certified_f32(queries, top_k)
+            if method == "packed":
+                return self._search_certified_packed(
+                    queries, top_k, exact_scores
+                )
+            return self._search_certified_fused(queries, top_k, exact_scores)
 
     def _padded_queries(self, queries_f32: np.ndarray, floor: int):
         """Rows zero-padded to a power of two of at least `floor`, on the
@@ -517,13 +526,14 @@ class RetrievalIndex(CorpusMetadata):
         self, queries_f32: np.ndarray, rows: np.ndarray, top_k: int
     ) -> tuple[np.ndarray, np.ndarray]:
         """Dense exact (scores, positions) of the given query rows."""
-        scores, positions = self._dense_exact(
-            self._padded_queries(queries_f32[rows], 8), top_k
-        )
-        return (
-            scores.cpu().numpy()[: rows.size],
-            positions.cpu().numpy()[: rows.size],
-        )
+        with span("index.dense"):
+            scores, positions = self._dense_exact(
+                self._padded_queries(queries_f32[rows], 8), top_k
+            )
+            return (
+                scores.cpu().numpy()[: rows.size],
+                positions.cpu().numpy()[: rows.size],
+            )
 
     def _host_escalation(self, queries_f32, top_k, sweep, certify):
         """Pass 1, lane-shuffled retries and host-side pool merges.
@@ -571,8 +581,10 @@ class RetrievalIndex(CorpusMetadata):
         self.last_certified_stats = stats
         return values, positions, bad
 
-    def _search_certified_f32(self, queries_f32, top_k):
-        corpus, scales, tile, true_n = self._scan_setup()
+    def _search_certified_f32(self, queries, top_k):
+        with span("index.prepare"):
+            queries_f32 = _host_queries(queries)
+            corpus, scales, tile, true_n = self._scan_setup()
 
         def sweep(queries_dev, shuffle):
             return certified_topk_parts(
@@ -585,25 +597,29 @@ class RetrievalIndex(CorpusMetadata):
                 scales=scales,
             )
 
-        # <=: score-multiset exactness (see `certified_topk`)
-        scores, positions, bad = self._host_escalation(
-            queries_f32, top_k, sweep, lambda dmax, tau: dmax <= tau
-        )
-        if bad.size:
-            scores[bad], positions[bad] = self._dense_rows(
-                queries_f32, bad, top_k
+        with span("index.pipeline"):
+            # <=: score-multiset exactness (see `certified_topk`)
+            scores, positions, bad = self._host_escalation(
+                queries_f32, top_k, sweep, lambda dmax, tau: dmax <= tau
             )
-        true_batch = queries_f32.shape[0]
-        return scores[:true_batch], positions[:true_batch]
+        with span("index.finish"):
+            if bad.size:
+                scores[bad], positions[bad] = self._dense_rows(
+                    queries_f32, bad, top_k
+                )
+            true_batch = queries_f32.shape[0]
+            return scores[:true_batch], self.ids[positions[:true_batch]]
 
-    def _search_certified_packed(self, queries_f32, top_k, exact_scores):
-        corpus, scales, tile, true_n = self._scan_setup()
-        idx_bits = max((corpus.shape[0] // tile - 1).bit_length(), 1)
-        # one keep-3 lane-pair merge cuts the selection width to 1.5 ct;
-        # a pair fails only when it holds >= 4 of a row's top-k, expected
-        # rows ~ k^4 / (24 pairs^3): gate on pairs^3 >= k^4
-        merge_levels = 1 if (tile >> 1) ** 3 >= top_k**4 else 0
-        bound = self._score_bound(queries_f32)
+    def _search_certified_packed(self, queries, top_k, exact_scores):
+        with span("index.prepare"):
+            queries_f32 = _host_queries(queries)
+            corpus, scales, tile, true_n = self._scan_setup()
+            idx_bits = max((corpus.shape[0] // tile - 1).bit_length(), 1)
+            # one keep-3 lane-pair merge cuts the selection width to 1.5
+            # ct; a pair fails only when it holds >= 4 of a row's top-k,
+            # expected rows ~ k^4 / (24 pairs^3): gate on pairs^3 >= k^4
+            merge_levels = 1 if (tile >> 1) ** 3 >= top_k**4 else 0
+            bound = self._score_bound(queries_f32)
 
         def sweep(queries_dev, shuffle):
             return packed_certified_parts(
@@ -624,73 +640,81 @@ class RetrievalIndex(CorpusMetadata):
         # padding keys are 0 but merge stamps can raise them to
         # (1 << merge_levels) - 1; real keys are >= bitcast(1.25)
         min_real = (1 << merge_levels) - 1
-        keys, positions, bad = self._host_escalation(
-            queries_f32,
-            top_k,
-            sweep,
-            lambda dmax, tau: (dmax <= tau) & (tau > min_real),
-        )
-        dense_scores = None
-        if bad.size:
-            dense_scores, positions[bad] = self._dense_rows(
-                queries_f32, bad, top_k
+        with span("index.pipeline"):
+            keys, positions, bad = self._host_escalation(
+                queries_f32,
+                top_k,
+                sweep,
+                lambda dmax, tau: (dmax <= tau) & (tau > min_real),
             )
-        true_batch = queries_f32.shape[0]
-        if exact_scores:
-            # exact-score epilogue over the whole (padded) batch, then
-            # re-sort rows descending (quantum ties are key-misordered)
-            exact = exact_scores_at(
-                self._padded_queries(queries_f32, 8),
-                self.corpus,
-                torch.from_numpy(positions).to(self.device),
-                scales=self._scales,
-            ).cpu().numpy()
-            order = np.argsort(-exact, axis=-1, kind="stable")
-            scores = np.take_along_axis(exact, order, axis=-1)
-            positions = np.take_along_axis(positions, order, axis=-1)
-        else:
-            # the (already descending) keys back to quantum-floor scores;
-            # dense-fallback rows keep their exact dense scores
-            scores = decode_scores(
-                torch.from_numpy(keys),
-                idx_bits=idx_bits,
-                score_bound=bound.cpu(),
-                reserve_bits=merge_levels,
-            ).numpy()
-            if dense_scores is not None:
-                scores[bad] = dense_scores
-        return scores[:true_batch], positions[:true_batch]
+        with span("index.finish"):
+            dense_scores = None
+            if bad.size:
+                dense_scores, positions[bad] = self._dense_rows(
+                    queries_f32, bad, top_k
+                )
+            true_batch = queries_f32.shape[0]
+            if exact_scores:
+                # exact-score epilogue over the whole (padded) batch, then
+                # re-sort rows descending (quantum ties are key-misordered)
+                exact = exact_scores_at(
+                    self._padded_queries(queries_f32, 8),
+                    self.corpus,
+                    torch.from_numpy(positions).to(self.device),
+                    scales=self._scales,
+                ).cpu().numpy()
+                order = np.argsort(-exact, axis=-1, kind="stable")
+                scores = np.take_along_axis(exact, order, axis=-1)
+                positions = np.take_along_axis(positions, order, axis=-1)
+            else:
+                # the (already descending) keys back to quantum-floor
+                # scores; dense-fallback rows keep their exact dense scores
+                scores = decode_scores(
+                    torch.from_numpy(keys),
+                    idx_bits=idx_bits,
+                    score_bound=bound.cpu(),
+                    reserve_bits=merge_levels,
+                ).numpy()
+                if dense_scores is not None:
+                    scores[bad] = dense_scores
+            return scores[:true_batch], self.ids[positions[:true_batch]]
 
-    def _search_certified_fused(self, queries_f32, top_k, exact_scores):
-        corpus, scales, tile, true_n = self._scan_setup()
-        true_batch = queries_f32.shape[0]
-        scores, positions, exact = packed_guaranteed_topk(
-            self._padded_queries(queries_f32, 8),
-            corpus,
-            top_k,
-            score_bound=self._score_bound(queries_f32),
-            batch_tile=512,
-            corpus_tile=tile,
-            merge_levels=1,
-            merge_keep=3,
-            true_num_items=true_n,
-            scales=scales,
-            retries=3,
-            recompute_scores=exact_scores,
-        )
-        scores = scores.cpu().numpy()[:true_batch]
-        positions = positions.cpu().numpy()[:true_batch]
-        exact = exact.cpu().numpy()[:true_batch]
-        bad = np.nonzero(~exact)[0]
-        self.last_certified_stats = {
-            "batch": true_batch,
-            "pipeline_bad": int(bad.size),
-        }
-        if bad.size:
-            scores[bad], positions[bad] = self._dense_rows(
-                queries_f32, bad, top_k
+    def _search_certified_fused(self, queries, top_k, exact_scores):
+        with span("index.prepare"):
+            queries_f32 = _host_queries(queries)
+            corpus, scales, tile, true_n = self._scan_setup()
+            padded = self._padded_queries(queries_f32, 8)
+            bound = self._score_bound(queries_f32)
+        with span("index.pipeline"):
+            scores, positions, exact = packed_guaranteed_topk(
+                padded,
+                corpus,
+                top_k,
+                score_bound=bound,
+                batch_tile=512,
+                corpus_tile=tile,
+                merge_levels=1,
+                merge_keep=3,
+                true_num_items=true_n,
+                scales=scales,
+                retries=3,
+                recompute_scores=exact_scores,
             )
-        return scores, positions
+        with span("index.finish"):
+            true_batch = queries_f32.shape[0]
+            scores = scores.cpu().numpy()[:true_batch]
+            positions = positions.cpu().numpy()[:true_batch]
+            exact = exact.cpu().numpy()[:true_batch]
+            bad = np.nonzero(~exact)[0]
+            self.last_certified_stats = {
+                "batch": true_batch,
+                "pipeline_bad": int(bad.size),
+            }
+            if bad.size:
+                scores[bad], positions[bad] = self._dense_rows(
+                    queries_f32, bad, top_k
+                )
+            return scores, self.ids[positions]
 
     # -- catalog mutation -------------------------------------------------
     def _invalidate(self) -> None:

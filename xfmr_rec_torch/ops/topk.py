@@ -35,6 +35,7 @@ from collections.abc import Sequence
 import torch
 
 from xfmr_rec_torch.ops import kernels
+from xfmr_rec_torch.utils.profiling import span
 
 NEG_INF = float("-inf")
 
@@ -770,76 +771,78 @@ def packed_certified_parts(
     routes it), else the sort. The fused kernel always tracks discards,
     so with `track_discards=False` "fused" runs as "topk".
     """
-    if merge_keep not in (2, 3):
-        msg = f"merge_keep must be 2 or 3, got {merge_keep}"
-        raise ValueError(msg)
-    if selector not in ("auto", "fused", "threshold", "topk"):
-        msg = f"unknown {selector=}"
-        raise ValueError(msg)
-    if not track_discards and selector == "fused":
-        selector = "topk"
-    ct = min(corpus_tile, corpus.shape[0])
-    num_tiles = corpus.shape[0] // ct
-    if idx_bits is None:
-        idx_bits = max((num_tiles - 1).bit_length(), 1)
-    merge_levels = _clamp_merge_levels(ct, k, merge_levels, merge_keep)
-    capacity = _round_up(k, 128)
-    decode = dict(
-        corpus_tile=ct,
-        idx_bits=idx_bits,
-        lane_shuffle=lane_shuffle,
-        reserve_bits=merge_levels,
-        merge_levels=merge_levels,
-    )
-    if selector == "fused":
-        sel_keys, sel_lanes, dmax = packed_lane_scan_select(
+    with span("index.sweep"):
+        if merge_keep not in (2, 3):
+            msg = f"merge_keep must be 2 or 3, got {merge_keep}"
+            raise ValueError(msg)
+        if selector not in ("auto", "fused", "threshold", "topk"):
+            msg = f"unknown {selector=}"
+            raise ValueError(msg)
+        if not track_discards and selector == "fused":
+            selector = "topk"
+        ct = min(corpus_tile, corpus.shape[0])
+        num_tiles = corpus.shape[0] // ct
+        if idx_bits is None:
+            idx_bits = max((num_tiles - 1).bit_length(), 1)
+        merge_levels = _clamp_merge_levels(ct, k, merge_levels, merge_keep)
+        capacity = _round_up(k, 128)
+        decode = dict(
+            corpus_tile=ct,
+            idx_bits=idx_bits,
+            lane_shuffle=lane_shuffle,
+            reserve_bits=merge_levels,
+            merge_levels=merge_levels,
+        )
+        if selector == "fused":
+            sel_keys, sel_lanes, dmax = packed_lane_scan_select(
+                queries,
+                corpus,
+                k,
+                score_bound=score_bound,
+                batch_tile=batch_tile,
+                corpus_tile=corpus_tile,
+                idx_bits=idx_bits,
+                merge_levels=merge_levels,
+                merge_keep=merge_keep,
+                capacity=capacity,
+                bias_in_dot=bias_in_dot,
+                true_num_items=true_num_items,
+                lane_shuffle=lane_shuffle,
+                scales=scales,
+            )
+            top_keys, sel = topk_stable(sel_keys, k)
+            top_lanes = torch.gather(sel_lanes, 1, sel)
+            positions = unpack_positions(top_keys, top_lanes, **decode)
+            return top_keys, positions, dmax
+        keys, dmax = packed_lane_scan(
             queries,
             corpus,
-            k,
             score_bound=score_bound,
             batch_tile=batch_tile,
             corpus_tile=corpus_tile,
             idx_bits=idx_bits,
-            merge_levels=merge_levels,
-            merge_keep=merge_keep,
-            capacity=capacity,
+            reserve_bits=merge_levels,
             bias_in_dot=bias_in_dot,
             true_num_items=true_num_items,
             lane_shuffle=lane_shuffle,
             scales=scales,
+            track_discards=track_discards,
         )
-        top_keys, sel = topk_stable(sel_keys, k)
-        top_lanes = torch.gather(sel_lanes, 1, sel)
+        pool, dmax = _merge_slots(keys, dmax, merge_levels, merge_keep)
+        use_threshold = selector == "threshold" or (
+            selector == "auto" and pool.shape[1] >= 4 * capacity
+        )
+        if use_threshold:
+            top_keys, top_lanes = select_topk_keys(
+                pool,
+                k,
+                capacity=capacity,
+                quantum_bits=idx_bits + merge_levels,
+                shared_exponent=True,
+            )
+        else:
+            top_keys, top_lanes = topk_stable(pool, k)
         return top_keys, unpack_positions(top_keys, top_lanes, **decode), dmax
-    keys, dmax = packed_lane_scan(
-        queries,
-        corpus,
-        score_bound=score_bound,
-        batch_tile=batch_tile,
-        corpus_tile=corpus_tile,
-        idx_bits=idx_bits,
-        reserve_bits=merge_levels,
-        bias_in_dot=bias_in_dot,
-        true_num_items=true_num_items,
-        lane_shuffle=lane_shuffle,
-        scales=scales,
-        track_discards=track_discards,
-    )
-    pool, dmax = _merge_slots(keys, dmax, merge_levels, merge_keep)
-    use_threshold = selector == "threshold" or (
-        selector == "auto" and pool.shape[1] >= 4 * capacity
-    )
-    if use_threshold:
-        top_keys, top_lanes = select_topk_keys(
-            pool,
-            k,
-            capacity=capacity,
-            quantum_bits=idx_bits + merge_levels,
-            shared_exponent=True,
-        )
-    else:
-        top_keys, top_lanes = topk_stable(pool, k)
-    return top_keys, unpack_positions(top_keys, top_lanes, **decode), dmax
 
 
 def decode_scores(

@@ -35,6 +35,7 @@ from xfmr_rec_torch.ops.topk import (
     _round_up,
     topk_stable,
 )
+from xfmr_rec_torch.utils.profiling import span
 
 
 def _scan_tiles(
@@ -468,19 +469,20 @@ def certified_topk_parts(
     decorrelated collisions; a merged pool certifies when the minimum of
     dmax over the passes is at most the merged k-th score (an item above
     it that is missing from the union was evicted in EVERY pass)."""
-    vals, pos, dmax = lane_max_scan(
-        queries,
-        corpus,
-        batch_tile=batch_tile,
-        corpus_tile=corpus_tile,
-        slots=slots,
-        track_discards=True,
-        true_num_items=true_num_items,
-        lane_shuffle=lane_shuffle,
-        scales=scales,
-    )
-    top_vals, top_lanes = topk_stable(vals, k)
-    return top_vals, torch.gather(pos, 1, top_lanes), dmax[:, 0]
+    with span("index.sweep"):
+        vals, pos, dmax = lane_max_scan(
+            queries,
+            corpus,
+            batch_tile=batch_tile,
+            corpus_tile=corpus_tile,
+            slots=slots,
+            track_discards=True,
+            true_num_items=true_num_items,
+            lane_shuffle=lane_shuffle,
+            scales=scales,
+        )
+        top_vals, top_lanes = topk_stable(vals, k)
+        return top_vals, torch.gather(pos, 1, top_lanes), dmax[:, 0]
 
 
 def certified_topk(

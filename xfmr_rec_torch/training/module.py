@@ -49,6 +49,7 @@ from xfmr_rec_torch.models.encoder import (
 from xfmr_rec_torch.models.history import TwoTowerModel, init_two_tower
 from xfmr_rec_torch.ops.losses import LOSS_NAMES, LossConfig, compute_losses
 from xfmr_rec_torch.params import TOP_K
+from xfmr_rec_torch.utils.profiling import span
 
 _TRAIN_CHOICES = {
     "train_loss": LOSS_NAMES,
@@ -259,16 +260,19 @@ def train_step(
     for group in state.optimizer.param_groups:
         group["lr"] = lr
     state.optimizer.zero_grad(set_to_none=True)
-    losses = compute_batch_losses(
-        state.model, batch, config, generator=state.generator, names=names
-    )
-    losses[config.train_loss].backward()
-    params = list(state.model.parameters())
-    for param in params:
-        if param.grad is None:
-            param.grad = torch.zeros_like(param)
-    grad_norm = global_norm([param.grad for param in params])
-    state.optimizer.step()
+    with span("train.forward"):
+        losses = compute_batch_losses(
+            state.model, batch, config, generator=state.generator, names=names
+        )
+    with span("train.backward"):
+        losses[config.train_loss].backward()
+    with span("train.optimizer"):
+        params = list(state.model.parameters())
+        for param in params:
+            if param.grad is None:
+                param.grad = torch.zeros_like(param)
+        grad_norm = global_norm([param.grad for param in params])
+        state.optimizer.step()
     state.step += 1
     metrics = {f"train/{name}": loss.detach() for name, loss in losses.items()}
     metrics["train/grad_norm"] = grad_norm

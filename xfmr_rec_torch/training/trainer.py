@@ -104,7 +104,7 @@ from xfmr_rec_torch.training import module as train_mod
 from xfmr_rec_torch.training.metrics import retrieval_metrics
 from xfmr_rec_torch.training.module import TrainConfig, TrainState
 from xfmr_rec_torch.utils.logging import MetricsLogger
-from xfmr_rec_torch.utils.profiling import device_trace
+from xfmr_rec_torch.utils.profiling import device_trace, span
 
 logger = logging.getLogger(__name__)
 
@@ -320,14 +320,21 @@ class Trainer:
         return min(total, int(limit))
 
     def train_step(self, batch: dict[str, np.ndarray]) -> dict:
-        """One update on a host batch; returns device metric tensors."""
-        if self._mesh_step is not None:
-            return self._mesh_step(self.state, shard_batch(batch, self.mesh))
-        return train_mod.train_step(
-            self.state,
-            train_mod.batch_to_device(batch, self.device),
-            log_all_losses=self.trainer_config.log_all_losses,
-        )
+        """One update on a host batch; returns device metric tensors.
+        Spans: `train.step` holds `train.to_device` and the step's
+        `train.forward`, `train.backward` and `train.optimizer`."""
+        with span("train.step"):
+            if self._mesh_step is not None:
+                return self._mesh_step(
+                    self.state, shard_batch(batch, self.mesh)
+                )
+            with span("train.to_device"):
+                device_batch = train_mod.batch_to_device(batch, self.device)
+            return train_mod.train_step(
+                self.state,
+                device_batch,
+                log_all_losses=self.trainer_config.log_all_losses,
+            )
 
     def fit(self) -> dict[str, float]:
         """Train with periodic validation; returns the last val metrics."""

@@ -1,20 +1,36 @@
-"""Profiling helpers: `torch.profiler` traces and host-side step timing.
+"""Profiling helpers: `torch.profiler` traces and the program's spans.
 
 Port of `xfmr_rec_tpu/utils/profiling.py`: `device_trace` records the
 host's operators and, where a card is visible, its kernels into
 `log_dir` in the Chrome trace format (`torch.profiler`'s
 `tensorboard_trace_handler`: one `*.pt.trace.json` a trace, readable by
-TensorBoard's profiler plugin or chrome://tracing); `StepTimer` is a
-cheap rolling step rate.
+TensorBoard's profiler plugin or chrome://tracing).
+
+`span(name)` marks a phase of the program (`index.*`, `train.*`,
+`data.batch`). While a `torch.profiler` records, it is a
+`record_function`: a `user_annotation` range in the same trace, on the
+same clock, as the operators, the CUDA runtime calls and the kernels they
+launch. Otherwise it is one shared null context, built once, and costs a
+test of the profiler's state. The spans are kept nowhere else.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from collections.abc import Iterator
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str) -> contextlib.AbstractContextManager:
+    """A profiler range named `name` while a profiler records, else the
+    shared null context (no `record_function` built, no dispatcher
+    call)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -34,31 +50,3 @@ def device_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         finally:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
-
-
-class StepTimer:
-    """Rolling step-rate tracker: `timer.tick()` per step, `.summary()`."""
-
-    def __init__(self, window: int = 100) -> None:
-        self.window = window
-        self._times: list[float] = []
-        self._count = 0
-
-    def tick(self) -> None:
-        self._count += 1
-        self._times.append(time.perf_counter())
-        if len(self._times) > self.window:
-            self._times.pop(0)
-
-    @property
-    def steps_per_second(self) -> float:
-        if len(self._times) < 2:
-            return 0.0
-        span = self._times[-1] - self._times[0]
-        return (len(self._times) - 1) / max(span, 1e-9)
-
-    def summary(self) -> dict[str, float]:
-        return {
-            "steps": float(self._count),
-            "steps_per_second": self.steps_per_second,
-        }
