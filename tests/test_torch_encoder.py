@@ -13,6 +13,11 @@ PyTorch may round differently; a difference of one rounding step in a
 hidden unit moves the unit-norm output by about that step's share, so the
 bf16 check uses atol 1e-2 (2.5 bf16 steps; the seeds here differ by
 under 2e-3).
+
+The `_cut` cases pad the texts to 32 and give the port only the columns
+`run_width` keeps (16: the texts run to at most 9 tokens), as
+`batch_to_device` does; the flax encoder runs all 32, under the same
+tolerances.
 """
 
 import jax.numpy as jnp
@@ -24,6 +29,7 @@ from flax import traverse_util
 from xfmr_rec_torch.models import convert
 from xfmr_rec_torch.models.encoder import ModelConfig as PortConfig
 from xfmr_rec_torch.models.encoder import TextEncoder as PortEncoder
+from xfmr_rec_torch.models.encoder import run_width
 from xfmr_rec_torch.models.tokenizer import HashingTokenizer as PortHashing
 from xfmr_rec_torch.models.tokenizer import TokenizerConfig as PortTokConfig
 from xfmr_rec_torch.models.tokenizer import VocabTokenizer as PortVocab
@@ -55,8 +61,10 @@ TEXTS = [
 ]
 
 
-def _run_both(overrides, seed):
-    config = ModelConfig(**{**TINY, **overrides})
+def _run_both(overrides, seed, max_length=16):
+    """(port, flax) embeddings of TEXTS padded to `max_length`; the port
+    is given the columns `run_width` keeps, which is every column at 16."""
+    config = ModelConfig(**{**TINY, **overrides, "max_length": max_length})
     model, params = init_encoder(config, rng=seed)
     rng = np.random.default_rng(seed)
     flat = {
@@ -68,8 +76,10 @@ def _run_both(overrides, seed):
         {tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()}
     )
     tokens = HashingTokenizer(
-        TokenizerConfig(vocab_size=config.vocab_size, max_length=16)
+        TokenizerConfig(vocab_size=config.vocab_size, max_length=max_length)
     ).encode_batch(TEXTS)
+    width = run_width([tokens], config.pooling_mode)
+    assert width == 16
     want = np.asarray(
         model.apply({"params": params}, jnp.asarray(tokens), deterministic=True)
     )
@@ -77,11 +87,11 @@ def _run_both(overrides, seed):
     encoder = convert.build_encoder(
         port_config, convert.encoder_state_from_flat(flat, port_config), "cpu"
     )
-    got = encoder(torch.from_numpy(tokens)).numpy()
+    got = encoder(torch.from_numpy(tokens[:, :width].copy())).numpy()
     return got, want
 
 
-@pytest.mark.parametrize(
+F32_CASES = pytest.mark.parametrize(
     "overrides",
     [
         {},
@@ -97,24 +107,48 @@ def _run_both(overrides, seed):
     ],
     ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()) or "dense-mean",
 )
-def test_encoder_f32_parity(overrides):
-    got, want = _run_both(overrides, seed=len(overrides) + 3)
-    assert got.dtype == np.float32
-    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
-
-
-@pytest.mark.parametrize(
+BF16_CASES = pytest.mark.parametrize(
     "overrides",
     [{}, {"embedding_type": "bloom", "num_buckets": 128}],
     ids=["dense", "bloom"],
 )
-def test_encoder_bf16_parity(overrides):
-    got, want = _run_both({"compute_dtype": "bfloat16", **overrides}, seed=7)
+
+
+def _check_f32(overrides, max_length):
+    got, want = _run_both(overrides, len(overrides) + 3, max_length)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _check_bf16(overrides, max_length):
+    got, want = _run_both(
+        {"compute_dtype": "bfloat16", **overrides}, 7, max_length
+    )
     np.testing.assert_allclose(got, want, atol=1e-2)
     # unit norm after the f32 normalize
     np.testing.assert_allclose(
         np.linalg.norm(got[:-1], axis=1), 1.0, rtol=1e-5
     )
+
+
+@F32_CASES
+def test_encoder_f32_parity(overrides):
+    _check_f32(overrides, max_length=16)
+
+
+@F32_CASES
+def test_encoder_f32_parity_cut(overrides):
+    _check_f32(overrides, max_length=32)
+
+
+@BF16_CASES
+def test_encoder_bf16_parity(overrides):
+    _check_bf16(overrides, max_length=16)
+
+
+@BF16_CASES
+def test_encoder_bf16_parity_cut(overrides):
+    _check_bf16(overrides, max_length=32)
 
 
 def test_rehash_buckets_match_uint32_arithmetic():

@@ -5,7 +5,9 @@
   bf16, under `test_torch_train_step.py`'s tolerances: losses and
   grad_norm within 1e-4 relative + 1e-5 absolute at f32 and 3e-2 + 1e-2
   at bf16; parameters within 5e-5 (largest) at f32 and 1e-4 (mean) at
-  bf16, with some parameter moved by more than 10x that mean.
+  bf16, with some parameter moved by more than 10x that mean. The `_cut`
+  case pads the texts to 32, and the port's `batch_to_device` cuts every
+  text field, the history's too, to the 16 columns they fill.
 - The port's `fit` from the reference's init (f32, dropout off, history
   tower + item bias + CF channel) against the reference `Trainer.fit` on
   the same data: retrieval metrics within 1e-6, held-out losses within
@@ -41,6 +43,7 @@ import torch
 from xfmr_rec_torch.data.module import DataConfig as PortDataConfig
 from xfmr_rec_torch.data.module import RecDataModule as PortDataModule
 from xfmr_rec_torch.models import convert
+from xfmr_rec_torch.models.encoder import run_width
 from xfmr_rec_torch.serving.engine import RecommenderEngine as PortEngine
 from xfmr_rec_torch.serving.schemas import ItemQuery, UserQuery
 from xfmr_rec_torch.serving.service import RecService, dispatch
@@ -100,15 +103,19 @@ TOLERANCES = {
 }
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_three_steps_match_jax(data_dir, compute_dtype):
+def check_three_steps(data_dir, compute_dtype, max_length):
     loss_tol, max_tol, mean_tol = TOLERANCES[compute_dtype]
     kw = dict(TINY, **CHANNELS, compute_dtype=compute_dtype,
-              learning_rate=LR)
+              learning_rate=LR, max_length=max_length)
     dm = RecDataModule(DataConfig(data_dir=data_dir, max_history=4,
-                                  max_bag=5, **DATA))
+                                  max_bag=5, **{**DATA,
+                                                "max_length": max_length}))
     dm.setup()
     batches = [b for _, b in zip(range(3), dm.train_batches(0))]
+    texts = [k for k in batches[0] if k.endswith("_tokens")]
+    assert "hist_tokens" in texts
+    for batch in batches:
+        assert run_width([batch[k] for k in texts], "mean") == 16
     ref_config = ref_module.TrainConfig(**kw)
     _, ref_state = ref_module.create_train_state(ref_config, rng=0)
     step = jax.jit(ref_module.make_train_step(ref_config))
@@ -118,7 +125,10 @@ def test_three_steps_match_jax(data_dir, compute_dtype):
     for batch in batches:
         ref_state, want = step(ref_state, batch)
         got = port_module.train_step(
-            state, port_module.batch_to_device(batch, torch.device(CPU))
+            state,
+            port_module.batch_to_device(
+                batch, torch.device(CPU), state.config.pooling_mode
+            ),
         )
         assert got.keys() == want.keys()
         for key in want:
@@ -135,6 +145,16 @@ def test_three_steps_match_jax(data_dir, compute_dtype):
     moved = np.concatenate([np.abs(got[n] - initial[n]).ravel()
                             for n in got])
     assert moved.max() > 10 * mean_tol
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_three_steps_match_jax(data_dir, compute_dtype):
+    check_three_steps(data_dir, compute_dtype, max_length=16)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_three_steps_match_jax_cut(data_dir, compute_dtype):
+    check_three_steps(data_dir, compute_dtype, max_length=32)
 
 
 def test_fit_matches_jax_trainer(data_dir, tmp_path):

@@ -22,6 +22,10 @@ Tolerances:
   update. The bf16 case is held by the mean absolute parameter
   difference instead, within 1e-4 (seen 1.7e-5).
 
+`test_five_steps_match_jax_cut` pads the texts to 32 and the port's
+`batch_to_device` cuts them to the 16 columns they fill (the flax step
+runs all 32), under the same tolerances.
+
 `test_parameter_bounds_fail_a_broken_update` runs the port with its
 gradients zeroed or negated before each AdamW step and shows that both
 cases' parameter bounds fail.
@@ -36,7 +40,7 @@ import pytest
 import torch
 
 from xfmr_rec_torch.models import convert
-from xfmr_rec_torch.models.encoder import dropout, init_encoder
+from xfmr_rec_torch.models.encoder import dropout, init_encoder, run_width
 from xfmr_rec_torch.models.history import TwoTowerModel
 from xfmr_rec_torch.training import module as port_module
 from xfmr_rec_tpu.data import DataConfig, RecDataModule
@@ -60,19 +64,33 @@ LR = 1e-3
 CPU = torch.device("cpu")
 
 
+def _batches(path, max_length):
+    dm = RecDataModule(
+        DataConfig(data_dir=str(path), batch_size=8, max_length=max_length,
+                   vocab_size=500)
+    )
+    dm.setup()
+    return [b for _, b in zip(range(STEPS), dm.train_batches(0))]
+
+
 @pytest.fixture(scope="module")
-def batches(tmp_path_factory):
+def step_data(tmp_path_factory):
     path = tmp_path_factory.mktemp("stepdata")
     generate_movielens(
         path, num_users=40, num_movies=120, num_ratings=1200, seed=1
     )
     prepare_movielens(str(path), overwrite=True)
-    dm = RecDataModule(
-        DataConfig(data_dir=str(path), batch_size=8, max_length=16,
-                   vocab_size=500)
-    )
-    dm.setup()
-    return [b for _, b in zip(range(STEPS), dm.train_batches(0))]
+    return path
+
+
+@pytest.fixture(scope="module")
+def batches(step_data):
+    return _batches(step_data, max_length=16)
+
+
+@pytest.fixture(scope="module")
+def batches_32(step_data):
+    return _batches(step_data, max_length=32)
 
 
 def port_state_from_ref(ref_state, kw):
@@ -94,13 +112,16 @@ TOLERANCES = {
 }
 
 
-def run_both(batches, compute_dtype, mutate=None):
+def run_both(batches, compute_dtype, mutate=None, max_length=16):
     """5 reference steps and 5 port steps from one init. `mutate` scales
     the port's gradients before each AdamW step (0 or -1: a broken
-    update). Returns the per-step metrics (port, reference) and the
-    final flat parameters (port, reference, initial)."""
+    update). The port's `batch_to_device` is given the pooling mode, so
+    it cuts columns PAD in every row. Returns the per-step metrics (port,
+    reference) and the final flat parameters (port, reference,
+    initial)."""
     kw = dict(TINY, compute_dtype=compute_dtype, learning_rate=LR,
-              lr_schedule="cosine", warmup_steps=2, total_steps=10)
+              lr_schedule="cosine", warmup_steps=2, total_steps=10,
+              max_length=max_length)
     ref_config = ref_module.TrainConfig(**kw)
     _, ref_state = ref_module.create_train_state(ref_config, rng=0)
     step = jax.jit(ref_module.make_train_step(ref_config))
@@ -117,7 +138,8 @@ def run_both(batches, compute_dtype, mutate=None):
     for batch in batches:
         ref_state, want = step(ref_state, batch)
         got = port_module.train_step(
-            state, port_module.batch_to_device(batch, CPU)
+            state,
+            port_module.batch_to_device(batch, CPU, state.config.pooling_mode),
         )
         metrics.append((got, want))
     assert state.step == STEPS
@@ -133,10 +155,11 @@ def param_differences(got, want):
     return float(diff.max()), float(diff.mean())
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_five_steps_match_jax(batches, compute_dtype):
+def check_five_steps(batches, compute_dtype, max_length):
     loss_tol, max_tol, mean_tol = TOLERANCES[compute_dtype]
-    metrics, got, want, initial = run_both(batches, compute_dtype)
+    metrics, got, want, initial = run_both(
+        batches, compute_dtype, max_length=max_length
+    )
     for step_got, step_want in metrics:
         assert step_got.keys() == step_want.keys()
         for key in step_want:
@@ -149,6 +172,19 @@ def test_five_steps_match_jax(batches, compute_dtype):
     assert mean <= mean_tol
     moved = max(np.abs(got[n] - initial[n]).max() for n in got)
     assert moved > 10 * mean_tol
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_five_steps_match_jax(batches, compute_dtype):
+    check_five_steps(batches, compute_dtype, max_length=16)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_five_steps_match_jax_cut(batches_32, compute_dtype):
+    texts = [k for k in batches_32[0] if k.endswith("_tokens")]
+    for batch in batches_32:
+        assert run_width([batch[k] for k in texts], "mean") == 16
+    check_five_steps(batches_32, compute_dtype, max_length=32)
 
 
 @pytest.mark.parametrize("mutate", [0.0, -1.0], ids=["zeroed", "negated"])

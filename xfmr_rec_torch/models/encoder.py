@@ -28,13 +28,29 @@ where the forward left it.
 The attention covers at most `max_length` (64) tokens over a few heads,
 computed outside any kernel in the JAX package too, so here it is plain
 einsum + softmax.
+
+The encoder runs at the width of the tokens it is given. Training
+batches reach it cut to their text (`run_width`, applied on the host by
+`training/module.py` `batch_to_device`): the trailing columns that are
+PAD (id 0) in every row are dropped before the upload. No output reads
+those columns: a PAD key's score bias of -1e9 gives it softmax weight 0
+(where its row has a real token), a PAD query feeds only its own
+position and pooling weighs PAD positions 0. So the outputs and the
+gradients are the same, up to the rounding order of the GEMMs. The
+dropout masks are drawn at `max_length` (the width the data layer pads
+rows to), or the input's width where that is wider, and their leading
+corner kept, so the generator advances as for a padded batch and each
+kept position meets the same draw. `token_slots` counts the padded
+token slots and those the encoder computed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Iterable
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch import nn
@@ -157,19 +173,28 @@ def _param(*shape: int) -> nn.Parameter:
 
 
 def dropout(
-    x: torch.Tensor, rate: float, generator: torch.Generator | None
+    x: torch.Tensor,
+    rate: float,
+    generator: torch.Generator | None,
+    drawn_at: tuple[int, ...] | None = None,
 ) -> torch.Tensor:
     """flax `nn.Dropout`: identity without a generator (deterministic),
     else keep each value with probability 1 - rate, scaled by
-    1 / (1 - rate), the mask drawn from `generator`."""
+    1 / (1 - rate), the mask drawn from `generator`.
+
+    `drawn_at`, a shape no smaller than `x`'s on any axis, draws the mask
+    at that shape and keeps its leading corner: the generator advances,
+    and `x` meets the same draws, as for an input of that shape."""
     if generator is None or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = (
-        torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    draws = torch.rand(
+        drawn_at or x.shape, generator=generator, device=x.device
     )
-    return torch.where(keep, x / (1.0 - rate), 0.0)
+    if drawn_at is not None:  # the leading corner, a view
+        draws = draws.as_strided(x.shape, draws.stride())
+    return torch.where(draws >= rate, x / (1.0 - rate), 0.0)
 
 
 class Embed(nn.Module):
@@ -293,7 +318,12 @@ class TransformerLayer(nn.Module):
         mask_bias: torch.Tensor,
         dtype: torch.dtype,
         generator: torch.Generator | None = None,
+        drawn_width: int | None = None,
     ) -> torch.Tensor:
+        """`drawn_width`, when given, is the sequence width the dropout
+        masks are drawn at (`dropout`'s `drawn_at`), at least `hidden`'s."""
+        batch, width, features = hidden.shape
+        full = drawn_width or width
         q = self.query(hidden, dtype)
         k = self.key(hidden, dtype)
         v = self.value(hidden, dtype)
@@ -304,12 +334,20 @@ class TransformerLayer(nn.Module):
         )
         scores = scores + mask_bias
         probs = torch.softmax(scores.float(), dim=-1).to(dtype)
-        probs = dropout(probs, self.rate, generator)
+        probs = dropout(
+            probs, self.rate, generator, (batch, probs.shape[1], full, full)
+        )
         context = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        attn_out = dropout(self.attn_out(context, dtype), self.rate, generator)
+        attn_out = dropout(
+            self.attn_out(context, dtype), self.rate, generator,
+            (batch, full, features),
+        )
         hidden = self.attn_norm(hidden + attn_out, dtype)
         ffn = self.act(self.ffn_in(hidden, dtype))
-        ffn = dropout(self.ffn_out(ffn, dtype), self.rate, generator)
+        ffn = dropout(
+            self.ffn_out(ffn, dtype), self.rate, generator,
+            (batch, full, features),
+        )
         return self.ffn_norm(hidden + ffn, dtype)
 
 
@@ -321,10 +359,11 @@ def run_layer(
     generator: torch.Generator | None,
     *,
     remat: bool,
+    drawn_width: int | None = None,
 ) -> torch.Tensor:
-    """`layer(hidden, mask_bias, dtype, generator)`; with `remat`, its
-    activations are recomputed in the backward (`torch.utils.checkpoint`,
-    non-reentrant).
+    """`layer(hidden, mask_bias, dtype, generator, drawn_width)`; with
+    `remat`, its activations are recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant).
 
     `checkpoint(preserve_rng_state=True)` saves only the default CPU and
     CUDA generators, and dropout draws from the explicit `generator`. So
@@ -334,10 +373,10 @@ def run_layer(
     gradients there is nothing to recompute and the layer runs as is.
     """
     if not remat or not torch.is_grad_enabled():
-        return layer(hidden, mask_bias, dtype, generator)
+        return layer(hidden, mask_bias, dtype, generator, drawn_width)
     if generator is None:
         return torch.utils.checkpoint.checkpoint(
-            layer, hidden, mask_bias, dtype, None,
+            layer, hidden, mask_bias, dtype, None, drawn_width,
             use_reentrant=False, preserve_rng_state=False,
         )
     before = generator.get_state()
@@ -347,11 +386,11 @@ def run_layer(
         nonlocal forward_done
         if not forward_done:
             forward_done = True
-            return layer(h, m, dtype, generator)
+            return layer(h, m, dtype, generator, drawn_width)
         after = generator.get_state()
         generator.set_state(before)
         try:
-            return layer(h, m, dtype, generator)
+            return layer(h, m, dtype, generator, drawn_width)
         finally:
             generator.set_state(after)
 
@@ -360,8 +399,35 @@ def run_layer(
     )
 
 
+def run_width(token_arrays: Iterable[np.ndarray], pooling_mode: str) -> int:
+    """The width to run host token rows at (the arrays share their last
+    axis): 1 + the last column holding a non-PAD id in any row of any
+    array, rounded up to a multiple of 8 (bf16 GEMMs stay aligned for the
+    tensor cores), at most the arrays' width. A position, not a count, so
+    a PAD inside a row cuts nothing. Under `cls` or `pooler` pooling a row
+    of PAD alone would read its position 0, which attends evenly over
+    every column, so arrays holding one keep their width."""
+    rows = [np.asarray(a).reshape(-1, np.shape(a)[-1]) for a in token_arrays]
+    full = rows[0].shape[-1]
+    if full <= 8:
+        return full
+    occupied = np.zeros(full, dtype=bool)
+    for block in rows:
+        if pooling_mode in ("cls", "pooler") and not block.any(axis=1).all():
+            return full
+        occupied |= block.any(axis=0)
+    hits = np.flatnonzero(occupied)
+    last = int(hits[-1]) + 1 if hits.size else 0
+    return min(full, max(8, -(-last // 8) * 8))
+
+
 class TextEncoder(nn.Module):
-    """Token ids (batch, seq) -> unit-norm embeddings (batch, hidden) f32."""
+    """Token ids (batch, seq) -> unit-norm embeddings (batch, hidden) f32.
+
+    `token_slots` counts, over every forward, the token slots of the
+    padded rows (`"padded"`: rows times the width the dropout masks are
+    drawn at, `max_length` or the input's if wider) and those computed
+    (`"run"`: rows times the input's width)."""
 
     def __init__(self, config: ModelConfig) -> None:
         super().__init__()
@@ -379,6 +445,7 @@ class TextEncoder(nn.Module):
         )
         if config.pooling_mode == "pooler":
             self.pooler = Dense((config.hidden_size,), (config.hidden_size,))
+        self.token_slots = {"padded": 0, "run": 0}
 
     def forward(
         self,
@@ -389,16 +456,24 @@ class TextEncoder(nn.Module):
         cfg = self.config
         dtype = cfg.torch_dtype
         token_ids = token_ids.long()
+        rows, width = token_ids.shape
+        padded = max(width, cfg.max_length)
+        self.token_slots["padded"] += rows * padded
+        self.token_slots["run"] += rows * width
         mask = token_ids != 0  # PAD_ID == 0
         embeds = self.word_embed(token_ids, dtype)
-        positions = torch.arange(token_ids.shape[-1], device=token_ids.device)
+        positions = torch.arange(width, device=token_ids.device)
         embeds = embeds + self.position_embed(positions, dtype)[None]
         hidden = self.embed_norm(embeds, dtype)
-        hidden = dropout(hidden, cfg.dropout_rate, generator)
+        hidden = dropout(
+            hidden, cfg.dropout_rate, generator,
+            (rows, padded, cfg.hidden_size),
+        )
         mask_bias = torch.where(mask, 0.0, -1e9).to(dtype)[:, None, None, :]
         for layer in self.layers:
             hidden = run_layer(
-                layer, hidden, mask_bias, dtype, generator, remat=cfg.remat
+                layer, hidden, mask_bias, dtype, generator, remat=cfg.remat,
+                drawn_width=padded,
             )
         pooled = self._pool(hidden, mask, dtype).float()
         if cfg.normalize:

@@ -22,6 +22,10 @@ Port of `xfmr_rec_tpu/training/module.py`, in plain PyTorch with autograd
   optax, the value is read at the update count before the update, so a
   warmup's first step has lr 0.
 - `train/grad_norm` is the global L2 norm of the gradients (no clipping).
+- `batch_to_device(batch, device, pooling_mode)` cuts the text columns
+  that are PAD in every row before the upload (`run_width`), so the
+  encoder runs at the batch's text width: the same losses and gradients,
+  the dropout masks drawn at `max_length` as for the padded batch.
 
 `dropout_rng_impl` is accepted for config compatibility and ignored:
 dropout masks come from the state's `torch.Generator` and never match
@@ -44,6 +48,7 @@ from xfmr_rec_torch.models.encoder import (
     TextEncoder,
     init_encoder,
     needs_two_tower,
+    run_width,
     uses_item_ids,
 )
 from xfmr_rec_torch.models.history import TwoTowerModel, init_two_tower
@@ -180,8 +185,17 @@ class TrainState:
 
 
 def batch_to_device(
-    batch: dict[str, np.ndarray], device: torch.device
+    batch: dict[str, np.ndarray],
+    device: torch.device,
+    pooling_mode: str | None = None,
 ) -> dict[str, torch.Tensor]:
+    """Upload a host batch. Given the encoder's `pooling_mode`, the text
+    fields (`*_tokens`) are first cut to `run_width` of them all, so the
+    upload and the encoder skip the columns that are PAD in every row."""
+    texts = [key for key in batch if key.endswith("_tokens")]
+    if pooling_mode is not None and texts:
+        width = run_width([batch[key] for key in texts], pooling_mode)
+        batch = {**batch, **{key: batch[key][..., :width] for key in texts}}
     return {
         key: torch.from_numpy(np.ascontiguousarray(value)).to(device)
         for key, value in batch.items()

@@ -329,7 +329,9 @@ class Trainer:
                     self.state, shard_batch(batch, self.mesh)
                 )
             with span("train.to_device"):
-                device_batch = train_mod.batch_to_device(batch, self.device)
+                device_batch = train_mod.batch_to_device(
+                    batch, self.device, self.config.pooling_mode
+                )
             return train_mod.train_step(
                 self.state,
                 device_batch,
@@ -635,7 +637,10 @@ class Trainer:
             if limit is not None and batch_idx >= limit:
                 break
             losses = train_mod.eval_losses(
-                self.state, train_mod.batch_to_device(batch, self.device)
+                self.state,
+                train_mod.batch_to_device(
+                    batch, self.device, self.config.pooling_mode
+                ),
             )
             for name, value in losses.items():
                 totals[name] = totals.get(name, 0.0) + value
