@@ -2433,20 +2433,22 @@ def remat_memory(config, big_batch, dev, card: str, what: str) -> None:
 
 
 def check_trace(prof_dir: pathlib.Path, card: str) -> None:
-    """The trace `profile_dir` wrote: steps 10-20 (ten AdamW steps) and
-    their CUDA kernels."""
+    """The trace `profile_dir` wrote: steps 10-20 (ten optimizer phases)
+    and their CUDA kernels."""
     files = sorted(prof_dir.glob("*.pt.trace.json"))
     check(len(files) == 1, f"profile_dir holds {len(files)} traces")
     events = json.loads(files[0].read_text())["traceEvents"]
-    # the host's record of each step ("gpu_user_annotation" mirrors it on
-    # the device's timeline)
+    # the host's record of each step's optimizer phase, the span AdamW
+    # runs in whether called eagerly or replayed from a CUDA graph (a
+    # replay records no `Optimizer.step` of its own; "gpu_user_annotation"
+    # mirrors the span on the device's timeline)
     steps = [e for e in events if e.get("cat") == "user_annotation"
-             and str(e.get("name", "")).startswith("Optimizer.step#AdamW")]
+             and e.get("name") == "train.optimizer"]
     device = [e for e in events if e.get("cat") == "kernel"]
     check(len(steps) == 10, f"the trace holds {len(steps)} optimizer steps")
     check(len(device) > 0, "the trace holds no CUDA kernel")
     print(f"training profile_dir: one trace ({files[0].stat().st_size / 2**20:.1f}"
-          f" MiB) of train steps 10-20: {len(steps)} AdamW steps, "
+          f" MiB) of train steps 10-20: {len(steps)} optimizer phases, "
           f"{len(device)} CUDA kernel events [{card}]")
 
 

@@ -4,9 +4,10 @@ Under `device_trace` the certified search writes `index.search_certified`
 holding `index.prepare`, `index.pipeline` (one `index.sweep` for pass 1
 and one a retry round) and `index.finish` (with `index.dense` where rows
 fall back); `Trainer.train_step` writes `train.step` holding
-`train.to_device`, `train.forward`, `train.backward` and
-`train.optimizer`; `train_batches` writes one `data.batch` a batch,
-around its assembly only; the trainer's `profile_dir` trace holds the
+`train.to_device` and, on the CPU, `train.eager`, which holds
+`train.forward`, `train.backward` and `train.optimizer`;
+`train_batches` writes one `data.batch` a batch, around its assembly
+only; the trainer's `profile_dir` trace holds the
 `train.*` spans. With no profiler, `span` is the shared null context and
 builds no `record_function`.
 """
@@ -126,9 +127,11 @@ def test_train_step_spans_hold_its_phases(trainer, tmp_path):
         trainer.train_step(batch)
     spans = named(annotations(tmp_path), "train.")
     (step,) = named(spans, "train.step")
-    phases = [s for s in spans if s[0] != "train.step"]
+    (eager,) = named(spans, "train.eager")
+    phases = [s for s in spans if s[0] not in ("train.step", "train.eager")]
     assert [s[0] for s in phases] == TRAIN_PHASES
-    assert all(inside(s, step) for s in phases)
+    assert inside(phases[0], step) and inside(eager, step)
+    assert all(inside(s, eager) for s in phases[1:])
 
 
 def test_one_data_batch_span_per_batch_around_its_assembly(trainer,

@@ -21,11 +21,18 @@ Port of `xfmr_rec_tpu/training/module.py`, in plain PyTorch with autograd
   warmup-cosine from 0 to lr and down to 0.01 lr at `total_steps`. As in
   optax, the value is read at the update count before the update, so a
   warmup's first step has lr 0.
+  A state whose step replays from CUDA graphs (`training/graphs.py`)
+  builds AdamW capturable, its learning rate a device tensor filled
+  before each step: the same update, its bias corrections computed on
+  the card in float64 (`CAPTURABLE_STEP_DTYPE`) as the eager step
+  computes them on the host. A checkpoint loads into either mode
+  (`TrainState.load_optimizer_state`).
 - `train/grad_norm` is the global L2 norm of the gradients (no clipping).
 - `batch_to_device(batch, device, pooling_mode)` cuts the text columns
-  that are PAD in every row before the upload (`run_width`), so the
-  encoder runs at the batch's text width: the same losses and gradients,
-  the dropout masks drawn at `max_length` as for the padded batch.
+  that are PAD in every row before the upload (`cut_to_run_width`), so
+  the encoder runs at the batch's text width: the same losses and
+  gradients, the dropout masks drawn at `max_length` as for the padded
+  batch.
 
 `dropout_rng_impl` is accepted for config compatibility and ignored:
 dropout masks come from the state's `torch.Generator` and never match
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -55,6 +63,9 @@ from xfmr_rec_torch.models.history import TwoTowerModel, init_two_tower
 from xfmr_rec_torch.ops.losses import LOSS_NAMES, LossConfig, compute_losses
 from xfmr_rec_torch.params import TOP_K
 from xfmr_rec_torch.utils.profiling import span
+
+if TYPE_CHECKING:
+    from xfmr_rec_torch.training.graphs import StepGraphs
 
 _TRAIN_CHOICES = {
     "train_loss": LOSS_NAMES,
@@ -140,9 +151,21 @@ def learning_rate_at(config: TrainConfig, count: int) -> float:
     return lr * ((1.0 - alpha) * cosine + alpha)
 
 
+# capturable AdamW computes its bias corrections on the card from the
+# step count, in the count's dtype. The eager step computes them on the
+# host in float64; in float32, 1 - 0.999^t is off by about 1e-5 of
+# itself, and Adam's normalisation turns that into whole steps of the
+# elements whose gradient is rounding noise (an attention key's bias),
+# so a graphed run would part from the eager one within a few steps
+CAPTURABLE_STEP_DTYPE = torch.float64
+
+
 class TrainState:
     """The model (a `TextEncoder`, or a `TwoTowerModel` for two-tower
-    configs), its AdamW state, the update count and the dropout generator.
+    configs), its AdamW state, the update count, the dropout generator
+    and `graphs`, the step's CUDA graphs (`training/graphs.py`) where the
+    trainer replays its steps from them, for which it builds the state
+    `capturable` (AdamW's step count kept on the device).
 
     Parameters are drawn on the CPU from `seed` (`init_encoder` /
     `init_two_tower`), so every
@@ -156,6 +179,7 @@ class TrainState:
         config: TrainConfig,
         seed: int = 0,
         device: str | torch.device = "cuda",
+        capturable: bool = False,
     ) -> None:
         if config.lr_schedule == "cosine":
             total = config.total_steps or max(config.warmup_steps + 1, 1000)
@@ -177,11 +201,47 @@ class TrainState:
             betas=ADAM_BETAS,
             eps=ADAM_EPS,
             weight_decay=config.weight_decay,
+            capturable=capturable,
         )
         self.step = 0
         self.generator = torch.Generator(device=self.device).manual_seed(
             seed + 1
         )
+        self.graphs: StepGraphs | None = None
+
+    def load_optimizer_state(self, saved: dict) -> None:
+        """Load AdamW's state in this state's own mode. `load_state_dict`
+        takes each group's `capturable` and `lr` from the file, so a
+        checkpoint of a graphed run (capturable, a device rate) or of an
+        eager one (a number) would carry its mode over: each group gets
+        this state's `capturable` and a number for its rate back (the
+        graphs make it a device tensor before a capture), and each step
+        count moves where the mode keeps it: on the parameter's device
+        in `CAPTURABLE_STEP_DTYPE` when capturable, else in float32 on
+        the host."""
+        capturable = self.optimizer.defaults["capturable"]
+        self.optimizer.load_state_dict(saved)
+        for group in self.optimizer.param_groups:
+            group["capturable"] = capturable
+            group["lr"] = float(group["lr"])
+            for param in group["params"]:
+                state = self.optimizer.state.get(param)
+                if state:
+                    where = ((param.device, CAPTURABLE_STEP_DTYPE)
+                             if capturable else ("cpu", torch.float32))
+                    state["step"] = state["step"].to(*where)
+
+
+def cut_to_run_width(
+    batch: dict[str, np.ndarray], pooling_mode: str
+) -> dict[str, np.ndarray]:
+    """The host batch with its text fields (`*_tokens`) cut to
+    `run_width` of them all (views): the columns PAD in every row go."""
+    texts = [key for key in batch if key.endswith("_tokens")]
+    if not texts:
+        return batch
+    width = run_width([batch[key] for key in texts], pooling_mode)
+    return {**batch, **{key: batch[key][..., :width] for key in texts}}
 
 
 def batch_to_device(
@@ -189,13 +249,11 @@ def batch_to_device(
     device: torch.device,
     pooling_mode: str | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Upload a host batch. Given the encoder's `pooling_mode`, the text
-    fields (`*_tokens`) are first cut to `run_width` of them all, so the
-    upload and the encoder skip the columns that are PAD in every row."""
-    texts = [key for key in batch if key.endswith("_tokens")]
-    if pooling_mode is not None and texts:
-        width = run_width([batch[key] for key in texts], pooling_mode)
-        batch = {**batch, **{key: batch[key][..., :width] for key in texts}}
+    """Upload a host batch. Given the encoder's `pooling_mode`, it is
+    first cut (`cut_to_run_width`), so the upload and the encoder skip the
+    columns that are PAD in every row."""
+    if pooling_mode is not None:
+        batch = cut_to_run_width(batch, pooling_mode)
     return {
         key: torch.from_numpy(np.ascontiguousarray(value)).to(device)
         for key, value in batch.items()
@@ -259,6 +317,29 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     )
 
 
+def set_learning_rate(state: TrainState) -> None:
+    """The schedule's rate at the state's update count, into every group
+    (filled into a device tensor where the group holds one)."""
+    lr = learning_rate_at(state.config, state.step)
+    for group in state.optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def optimizer_update(state: TrainState) -> torch.Tensor:
+    """The optimizer phase: a zero gradient for each parameter without
+    one, the gradients' global norm (returned), the AdamW step."""
+    params = list(state.model.parameters())
+    for param in params:
+        if param.grad is None:
+            param.grad = torch.zeros_like(param)
+    grad_norm = global_norm([param.grad for param in params])
+    state.optimizer.step()
+    return grad_norm
+
+
 def train_step(
     state: TrainState,
     batch: dict[str, torch.Tensor],
@@ -270,9 +351,7 @@ def train_step(
     the train loss: the same update, fewer metrics."""
     config = state.config
     names = None if log_all_losses else (config.train_loss,)
-    lr = learning_rate_at(config, state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
+    set_learning_rate(state)
     state.optimizer.zero_grad(set_to_none=True)
     with span("train.forward"):
         losses = compute_batch_losses(
@@ -281,12 +360,7 @@ def train_step(
     with span("train.backward"):
         losses[config.train_loss].backward()
     with span("train.optimizer"):
-        params = list(state.model.parameters())
-        for param in params:
-            if param.grad is None:
-                param.grad = torch.zeros_like(param)
-        grad_norm = global_norm([param.grad for param in params])
-        state.optimizer.step()
+        grad_norm = optimizer_update(state)
     state.step += 1
     metrics = {f"train/{name}": loss.detach() for name, loss in losses.items()}
     metrics["train/grad_norm"] = grad_norm

@@ -22,6 +22,9 @@ Port of `xfmr_rec_tpu/training/trainer.py` on one device:
   the CF channel, the user store `users.npz` (in place of the
   reference's `users.parquet`; `serving/users.py`), and `encoder.npz` +
   `portable.json` with the text encoder alone;
+- on one card (`graphs_engage`: off the mesh, remat off, the text
+  tower) a train step replays from CUDA graphs captured for its batch
+  shape (`training/graphs.py`); elsewhere it runs eagerly;
 - `profile_dir` traces train steps 10-20 with `torch.profiler`
   (`utils/profiling.py` `device_trace`), as the reference traces them
   with `jax.profiler`;
@@ -101,6 +104,7 @@ from xfmr_rec_torch.params import (
 )
 from xfmr_rec_torch.serving.users import UserStore
 from xfmr_rec_torch.training import module as train_mod
+from xfmr_rec_torch.training.graphs import StepGraphs, graphs_engage
 from xfmr_rec_torch.training.metrics import retrieval_metrics
 from xfmr_rec_torch.training.module import TrainConfig, TrainState
 from xfmr_rec_torch.utils.logging import MetricsLogger
@@ -181,6 +185,10 @@ class Trainer:
             )
             self.device = self.mesh.lead
         self._mesh_step = None
+        # train steps replayed from a graph set captured for them
+        # ("captured"), from one captured before ("replayed"), or run
+        # eagerly ("eager")
+        self.step_counts = {"captured": 0, "replayed": 0, "eager": 0}
         # the eval corpus split over the model axis (model_parallel > 1)
         self._sharded_corpus = None
         self._sharded_corpus_pad = 0
@@ -263,9 +271,15 @@ class Trainer:
             self.config = dataclasses.replace(
                 self.config, total_steps=max(int(planned), 1)
             )
-        self.state = TrainState(
-            self.config, seed=self.trainer_config.seed, device=self.device
+        graphed = graphs_engage(
+            self.config, self.device, mesh=self.mesh is not None
         )
+        self.state = TrainState(
+            self.config, seed=self.trainer_config.seed, device=self.device,
+            capturable=graphed,
+        )
+        if graphed:
+            self.state.graphs = StepGraphs(self.device)
         if self.mesh is not None:
             tc = self.trainer_config
             place_state(
@@ -321,22 +335,33 @@ class Trainer:
 
     def train_step(self, batch: dict[str, np.ndarray]) -> dict:
         """One update on a host batch; returns device metric tensors.
-        Spans: `train.step` holds `train.to_device` and the step's
-        `train.forward`, `train.backward` and `train.optimizer`."""
+        Spans: `train.step` holds `train.to_device`, then
+        `train.graphed` where the state's graphs replay the step (after
+        `train.capture` on a new batch shape), else `train.eager`; those
+        hold `train.forward`, `train.backward` and `train.optimizer`.
+        `step_counts` counts the steps of each kind."""
+        log_all = self.trainer_config.log_all_losses
         with span("train.step"):
-            if self._mesh_step is not None:
-                return self._mesh_step(
-                    self.state, shard_batch(batch, self.mesh)
+            if self.state.graphs is not None:
+                metrics, captured = self.state.graphs.step(
+                    self.state, batch, log_all_losses=log_all
                 )
+                self.step_counts["captured" if captured else "replayed"] += 1
+                return metrics
+            self.step_counts["eager"] += 1
+            if self._mesh_step is not None:
+                with span("train.eager"):
+                    return self._mesh_step(
+                        self.state, shard_batch(batch, self.mesh)
+                    )
             with span("train.to_device"):
                 device_batch = train_mod.batch_to_device(
                     batch, self.device, self.config.pooling_mode
                 )
-            return train_mod.train_step(
-                self.state,
-                device_batch,
-                log_all_losses=self.trainer_config.log_all_losses,
-            )
+            with span("train.eager"):
+                return train_mod.train_step(
+                    self.state, device_batch, log_all_losses=log_all
+                )
 
     def fit(self) -> dict[str, float]:
         """Train with periodic validation; returns the last val metrics."""
@@ -817,7 +842,10 @@ class Trainer:
         )
         if saved["params"].keys() == self.state.model.state_dict().keys():
             self.state.model.load_state_dict(saved["params"])
-            self.state.optimizer.load_state_dict(saved["opt_state"])
+            self.state.load_optimizer_state(saved["opt_state"])
+            if self.state.graphs is not None:
+                # the graphs read the optimizer state the load replaced
+                self.state.graphs.clear()
         else:
             # whole tables for a sharded model: load them into a fresh
             # state and split them again
@@ -825,7 +853,7 @@ class Trainer:
                 self.config, seed=self.trainer_config.seed, device=self.device
             )
             state.model.load_state_dict(saved["params"])
-            state.optimizer.load_state_dict(saved["opt_state"])
+            state.load_optimizer_state(saved["opt_state"])
             place_state(state, self.mesh, self.config, shard_vocab=True)
             self.state = state
         self.state.step = int(saved["step"])
